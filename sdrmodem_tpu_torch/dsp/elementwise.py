@@ -1,0 +1,95 @@
+"""Elementwise blocks of the demodulator front end.
+
+Counterpart of ``sdrmodem_tpu/dsp/elementwise.py:28-69, 258-280``:
+
+- ``fast_atan2``        — the reference's 257-entry LUT arctangent
+                          (src/math/fast_atan2f.c:87-150), a real table
+                          gather: the GPU has gathers, so the JAX package's
+                          gather-free polynomial variants are not ported;
+- ``dc_blocker_length`` / ``dc_blocker_taps``
+                        — the 4-stage moving-average DC blocker
+                          (src/dsp/dc_blocker.c:56-119) as one causal FIR.
+
+``csrc/front.cu`` evaluates ``fast_atan2`` with the same operations in the
+same order, so the kernel and this plain version agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sdrmodem_tpu_torch.dsp import taps as taps_mod
+
+_PI = float(np.float32(np.pi))
+_HALF_PI = float(np.float32(np.pi / 2))
+_TAN_MAP_RES = float(np.float32(0.003921569))  # smallest non-zero table value
+_TINY = float(np.float32(1e-45))
+
+
+def atan_table(device=None) -> torch.Tensor:
+    """The 257-entry reference arctangent table as a float32 tensor."""
+    return torch.from_numpy(taps_mod.atan_table().copy()).to(device)
+
+
+def fast_atan2(
+    y: torch.Tensor, x: torch.Tensor, table: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Table-lookup arctangent, float32: linear interpolation in the
+    257-entry table over [0, pi/4], octant folding and a small-angle
+    shortcut, exactly as reference src/math/fast_atan2f.c:87-150."""
+    if table is None:
+        table = atan_table(y.device)
+    y = y.to(torch.float32)
+    x = x.to(torch.float32)
+    y_abs = y.abs()
+    x_abs = x.abs()
+    both_zero = ~((y_abs > 0.0) | (x_abs > 0.0))
+    denom = torch.clamp(torch.maximum(y_abs, x_abs), min=_TINY)
+    z = torch.minimum(y_abs, x_abs) / denom
+
+    alpha = z * 255.0
+    index = torch.clamp(alpha.to(torch.int64), 0, 255)
+    frac = alpha - index.to(torch.float32)
+    t0 = table[index]
+    t1 = table[index + 1]
+    interp = t0 + (t1 - t0) * frac
+    base = torch.where(z < _TAN_MAP_RES, z, interp)
+
+    # octant folding identical to the C branch ladder
+    angle = torch.where(
+        x_abs > y_abs,
+        torch.where(
+            x >= 0.0,
+            torch.where(y >= 0.0, base, -base),
+            torch.where(y >= 0.0, _PI - base, base - _PI),
+        ),
+        torch.where(
+            y >= 0.0,
+            torch.where(x >= 0.0, _HALF_PI - base, _HALF_PI + base),
+            torch.where(x >= 0.0, base - _HALF_PI, -_HALF_PI - base),
+        ),
+    )
+    return torch.where(both_zero, torch.zeros_like(angle), angle)
+
+
+def dc_blocker_length(sps: float) -> int:
+    """Reference DC blocker length: ceil(sps * 32) (src/dsp/fsk_demod.c:56)."""
+    return int(np.ceil(np.float32(sps) * 32))
+
+
+def dc_blocker_taps(length: int) -> np.ndarray:
+    """Equivalent causal FIR taps of the 4-stage moving-average DC blocker.
+
+    The reference (src/dsp/dc_blocker.c:105-119) computes, per sample,
+    out[t] = x[t - 2(L-1)] - MA_L^4(x)[t], where MA_L is a length-L moving
+    average and the delayed path a 2(L-1)-sample delay line.  Composing the
+    four averages gives a single causal FIR of length 4L-3:
+
+        taps[j] = delta[j - 2(L-1)] - (u*u*u*u)[j],   u = ones(L)/L
+    """
+    u = np.full(length, 1.0 / length, np.float64)
+    k = np.convolve(np.convolve(u, u), np.convolve(u, u))  # length 4L-3
+    taps = -k
+    taps[2 * (length - 1)] += 1.0
+    return taps.astype(np.float32)

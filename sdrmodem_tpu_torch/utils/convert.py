@@ -1,0 +1,109 @@
+"""Carry a full-block demodulator state between the JAX package and the port.
+
+The JAX ``DemodStateFull`` pads its lanes to a multiple of 128 (I lanes in
+[0, Cp), Q lanes in [Cp, 2Cp)); the port keeps exactly C lanes.  Both
+functions take and give the state as numpy arrays in the JAX layout, so
+neither side needs the other's framework.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from sdrmodem_tpu_torch.dsp.clock_recovery import ClockFullState
+from sdrmodem_tpu_torch.dsp.pipeline import DemodStateFull
+
+LANES = 128  # the JAX package's lane multiple
+
+
+class NumpyClockFullState(NamedTuple):
+    omega: np.ndarray
+    mu: np.ndarray
+    last_sample: np.ndarray
+    suffix: np.ndarray
+    resid: np.ndarray
+    overflow: np.ndarray
+
+
+class NumpyDemodStateFull(NamedTuple):
+    lpf1_hist: np.ndarray
+    quad_prev: np.ndarray
+    lpf2_hist: np.ndarray
+    dc_hist: np.ndarray | None
+    clock: NumpyClockFullState
+
+
+def _iq_lanes(a: np.ndarray, channels: int) -> np.ndarray:
+    """(rows, 2Cp) I|Q lanes -> (rows, 2C)."""
+    cp = a.shape[1] // 2
+    return np.concatenate([a[:, :channels], a[:, cp : cp + channels]], axis=1)
+
+
+def full_state_from_numpy(state, channels: int, device=None) -> DemodStateFull:
+    """A JAX ``DemodStateFull`` (numpy leaves, lanes padded) as the port's
+    state for its first ``channels`` lanes."""
+    c = int(channels)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+    ck = state.clock
+    return DemodStateFull(
+        lpf1_hist=t(_iq_lanes(np.asarray(state.lpf1_hist), c)),
+        quad_prev=t(_iq_lanes(np.asarray(state.quad_prev), c)),
+        lpf2_hist=t(np.asarray(state.lpf2_hist)[:, :c]),
+        dc_hist=None if state.dc_hist is None else t(np.asarray(state.dc_hist)[:, :c]),
+        clock=ClockFullState(
+            omega=t(np.asarray(ck.omega)[:c]),
+            mu=t(np.asarray(ck.mu)[:c]),
+            last_sample=t(np.asarray(ck.last_sample)[:c]),
+            suffix=t(np.asarray(ck.suffix)[:, :c]),
+            resid=t(np.asarray(ck.resid)[:c], torch.int32),
+            overflow=t(np.asarray(ck.overflow)[:c]),
+        ),
+    )
+
+
+def full_state_to_numpy(state: DemodStateFull) -> NumpyDemodStateFull:
+    """The port's state in the JAX layout, lanes padded to a multiple of 128.
+
+    Padded lanes of the FIR tails and the suffix are zero; the per-lane
+    clock values of the padded lanes repeat the last real lane, so they
+    hold a valid clock state."""
+    c = state.quad_prev.shape[1] // 2
+    pad = -(-c // LANES) * LANES - c
+
+    def a(x):
+        return x.detach().cpu().numpy()
+
+    def lanes(x):  # (rows, C) -> (rows, Cp)
+        return np.pad(a(x), ((0, 0), (0, pad)))
+
+    def iq(x):  # (rows, 2C) -> (rows, 2Cp)
+        x = a(x)
+        return np.concatenate(
+            [np.pad(x[:, :c], ((0, 0), (0, pad))), np.pad(x[:, c:], ((0, 0), (0, pad)))],
+            axis=1,
+        )
+
+    def vec(x):  # (C,) -> (Cp,)
+        return np.pad(a(x), (0, pad), mode="edge")
+
+    ck = state.clock
+    return NumpyDemodStateFull(
+        lpf1_hist=iq(state.lpf1_hist),
+        quad_prev=iq(state.quad_prev),
+        lpf2_hist=lanes(state.lpf2_hist),
+        dc_hist=None if state.dc_hist is None else lanes(state.dc_hist),
+        clock=NumpyClockFullState(
+            omega=vec(ck.omega),
+            mu=vec(ck.mu),
+            last_sample=vec(ck.last_sample),
+            suffix=lanes(ck.suffix),
+            resid=vec(ck.resid),
+            overflow=np.pad(a(ck.overflow), (0, pad)),
+        ),
+    )

@@ -1,0 +1,138 @@
+"""The PyTorch port's package boundary and its copies of backend-free code.
+
+- ``import sdrmodem_tpu_torch`` pulls in neither JAX nor ``sdrmodem_tpu``
+  (``sdrmodem_tpu/__init__.py`` switches JAX to x64 for every importer);
+- the port's copies of the tap design, the MMSE bank and the arctangent
+  table are bit-equal to the JAX package's (tolerance: none — the same
+  numpy code on the same inputs);
+- the JAX <-> port state conversion round-trips exactly;
+- a kernel library's file name changes with its compiler flags.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from sdrmodem_tpu.dsp import taps as jtaps
+from sdrmodem_tpu.dsp.elementwise import dc_blocker_taps as j_dc_taps
+from sdrmodem_tpu.dsp.fsk_demod import FskDemodConfig as JaxConfig
+from sdrmodem_tpu.dsp.pipeline import DemodPipeline as JaxPipeline
+from sdrmodem_tpu_torch.dsp import taps as ttaps
+from sdrmodem_tpu_torch.ops import _build
+from sdrmodem_tpu_torch.dsp.clock_recovery import suffix_cap_for
+from sdrmodem_tpu_torch.dsp.elementwise import dc_blocker_taps as t_dc_taps
+from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+from sdrmodem_tpu_torch.utils.convert import full_state_from_numpy, full_state_to_numpy
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "sdrmodem_tpu_torch"
+
+CONFIGS = {
+    "lucky7": (48000, 4800, 5000, 2, 2000, True),
+    "lucky7_nodc": (48000, 4800, 5000, 2, 2000, False),
+    "nusat": (192000, 40000, 5000, 1, 2000, True),
+    "nan": (240000, 9600, 5000, 1, 2000, True),
+}
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys, sdrmodem_tpu_torch\n"
+        "from sdrmodem_tpu_torch.dsp import pipeline\n"
+        "from sdrmodem_tpu_torch.utils import convert, parity\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'sdrmodem_tpu.'))"
+        " or m == 'sdrmodem_tpu']\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_sources_import_nothing_of_the_jax_package():
+    sources = list(PORT.rglob("*.py"))
+    assert sources
+    for path in sources:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in ("jax", "jaxlib", "sdrmodem_tpu"), f"{path}: imports {name}"
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_taps_bit_equal(name):
+    jc, tc = JaxConfig(*CONFIGS[name]), FskDemodConfig(*CONFIGS[name])
+    assert np.array_equal(jc.lpf1_taps(), tc.lpf1_taps())
+    assert np.array_equal(jc.lpf2_taps(), tc.lpf2_taps())
+    assert np.array_equal(j_dc_taps(jc.dc_length), t_dc_taps(tc.dc_length))
+    assert (jc.quad_gain, jc.sps, jc.dc_length) == (tc.quad_gain, tc.sps, tc.dc_length)
+    assert jc.clock_params() == tc.clock_params()
+
+
+def test_tables_bit_equal():
+    assert ttaps.mmse_interp_taps().shape == (129, 8)
+    assert ttaps.atan_table().shape == (257,)
+    assert np.array_equal(jtaps.mmse_interp_taps(), ttaps.mmse_interp_taps())
+    assert np.array_equal(jtaps.atan_table(), ttaps.atan_table())
+
+
+@pytest.mark.parametrize("name", ["lucky7", "lucky7_nodc"])
+def test_state_conversion_round_trip(name):
+    """A JAX initial state (lanes padded to 128) carries into the port's
+    unpadded layout and back unchanged."""
+    c = 3
+    jstate = JaxPipeline(JaxConfig(*CONFIGS[name]), 4096, exact=False).init_full_state(c)
+    rng = np.random.default_rng(1)
+
+    def fill(a):  # distinct values, so a lane mix-up shows
+        a = np.asarray(a)
+        if a.dtype == np.int32:
+            return rng.integers(-3, 60, a.shape).astype(np.int32)
+        return rng.standard_normal(a.shape).astype(np.float32)
+
+    jstate = type(jstate)(
+        *(None if f is None else fill(f) for f in jstate[:4]),
+        type(jstate.clock)(*(fill(f) for f in jstate.clock)),
+    )
+    pipe = DemodPipeline(FskDemodConfig(*CONFIGS[name]), 4096, device="cpu")
+    tstate = full_state_from_numpy(jstate, c)
+    ref = pipe.init_full_state(c)
+    for got, want in zip(tstate[:4], ref[:4]):
+        assert (got is None) == (want is None)
+        assert got is None or got.shape == want.shape
+    assert tstate.clock.suffix.shape == (suffix_cap_for(pipe.config.sps), c)
+    back = full_state_to_numpy(tstate)
+    cp = 128
+    for a, b in zip(back[:4], jstate[:4]):
+        if b is None:
+            assert a is None
+            continue
+        if a.shape[1] == 2 * cp:
+            cols = list(range(c)) + list(range(cp, cp + c))
+        else:
+            cols = list(range(c))
+        assert np.array_equal(a[:, cols], b[:, cols])
+    for a, b in zip(back.clock, jstate.clock):
+        assert a.shape == b.shape
+        assert np.array_equal(a[..., :c], b[..., :c])
+
+
+def test_library_name_follows_compiler_flags(monkeypatch):
+    """A library built with other flags is never loaded: without the
+    clock's -fmad=false its f32 step could be contracted into FMAs."""
+    clock, front = _build.library_path("clock"), _build.library_path("front")
+    assert clock.parent == front.parent == REPO / "build" / "kernels"
+    assert clock != front and clock.name.startswith("libclock-")
+    monkeypatch.setitem(_build.EXTRA_FLAGS, "clock", [])
+    assert _build.library_path("clock") != clock
+    monkeypatch.setattr(_build, "NVCC_FLAGS", [*_build.NVCC_FLAGS, "-lineinfo"])
+    assert _build.library_path("front") != front
