@@ -7,18 +7,33 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. build  — nvcc compiles csrc/*.cu into build/kernels/, one process per
-            source, all started together;
-2. check  — each kernel against its plain PyTorch version on the card,
-            128 lanes x 65536 samples, three configurations, three blocks
-            with carried state;
-3. golden — the four reference fixtures through the port's
-            make_batched_step_full(layout="tm") on the card;
-4. main   — the main path at full width: 128 lanes x 2^20 samples of the
-            lucky7 configuration (the bench.py shape), layouts "tm" and
-            "fanout", 5 timed steps each after a warm-up, with the launch
-            counts read around the run; then each kernel timed alone and
-            held against its plain version at that shape.
+1. build   — nvcc compiles csrc/*.cu into build/kernels/, one process per
+             source, all started together;
+2. check   — each kernel against its plain PyTorch version on the card at
+             128 lanes x 65536 samples: the front and the clock (three
+             configurations, three blocks with carried state); B3 over the
+             lucky7 LPF2, LPF1 and DC taps at strides 1 and 2 with a band
+             offset, and B8; the front with Doppler tables from the raw
+             lucky7 pass on 64 lanes (the other 64 without rows, which must
+             equal a run without Doppler bit for bit); the fused and banded
+             fronts bit for bit, with and without Doppler;
+3. golden  — the four reference fixtures through the port's
+             make_batched_step_full(layout="tm"), and the raw lucky7 pass
+             through the server's call make_batched_step_full("pallas",
+             doppler=True, layout="fanout"), on the card;
+4. main    — the paths, each driven with the launch counts set to 0 just
+             before it and read just after: (a) 128 lanes x 2^20 samples of
+             the lucky7 configuration (the bench.py shape), layouts "tm" and
+             "fanout"; (b) the server's step at its default shape, 128 lanes
+             x 262144 (server/config.py:76), layout "fanout", Doppler rows on
+             every lane, front "fused" and front "banded"; (c) fir_tpu over
+             128 lanes x 2^20 with the LPF2 taps, decimation 2.  One warm-up
+             and 5 timed steps each (3 for fir_tpu), by CUDA events.  On
+             each path's own inputs, outside the counted runs, the fronts
+             and B3 are held against their plain versions;
+5. kernels — each kernel alone at its path's shape: time, its plain
+             version's time and error, its bound, and a PyTorch library
+             call's time where one computes the same function.
 
 Prints the card's name and power limit, one JSON line describing each
 kernel, and as its last line {"ok": true, "device": {...}}.  Exits non-zero
@@ -49,8 +64,21 @@ CHECK_CONFIGS = {
 LANES = 128
 CHECK_BLOCK = 65536
 MAIN_BLOCK = 1 << 20
+SERVER_BLOCK = 262144  # the server's default buffer_size (server/config.py:76)
 MAIN_STEPS = 5
 FRONT_ATOL = 1e-4  # tests/test_fused_front.py:46
+MIXED_ATOL = 2e-6  # the NCO's cos and sin, an ulp apart (tests/test_torch_doppler.py)
+BAND_OFFSET = 37
+
+# the lucky7 pass the Doppler goldens were recorded with (tests/test_doppler.py)
+TLE = [
+    "LUCKY-7",
+    "1 44406U 19038W   20069.88080907  .00000505  00000-0  32890-4 0  9992",
+    "2 44406  97.5270  32.5584 0026284 107.4758 252.9348 15.12089395 37524",
+]
+DOPPLER = dict(latitude=53.72, longitude=47.57, altitude_km=0.0, sampling_freq=48000,
+               center_freq=437525000, tle_lines=TLE)
+PASS_START = 1583840449
 
 
 class SmokeError(Exception):
@@ -66,14 +94,37 @@ def log(msg):
     print(msg, flush=True)
 
 
-def capture_lanes(torch, dev, n, lanes):
-    """The lucky7 capture tiled into (n, 2*lanes) time-major IQ, lane c
+def capture_lanes(torch, dev, n, lanes, name="lucky7.expected.cf32"):
+    """A lucky7 capture tiled into (n, 2*lanes) time-major IQ, lane c
     reading the tiled stream from c*n on (as bench.py tiles it)."""
-    iq = np.fromfile(FIXTURES / "lucky7.expected.cf32", np.complex64)
+    iq = np.fromfile(FIXTURES / name, np.complex64)
     re = torch.from_numpy(iq.real.copy()).to(dev)
     im = torch.from_numpy(iq.imag.copy()).to(dev)
     idx = (torch.arange(n, device=dev)[:, None] + n * torch.arange(lanes, device=dev)[None, :]) % len(iq)
     return torch.cat([re[idx], im[idx]], dim=1).contiguous()
+
+
+def lane_dopplers(lanes):
+    """One Doppler corrector per lane, each on its own pass: even lanes
+    start a second apart, odd lanes carry their own constant offset."""
+    from sdrmodem_tpu_torch.dsp.doppler import Doppler
+
+    return {
+        k: Doppler(**DOPPLER, start_time_seconds=PASS_START + (k if k % 2 == 0 else 0),
+                   constant_offset=0 if k % 2 == 0 else 50 * k)
+        for k in lanes
+    }
+
+
+def doppler_tables(dops, block, lanes, dev, max_batch=None):
+    """The next block's (S, lanes) tables on the card (rows from each
+    lane's corrector; lanes without one have no rows)."""
+    from sdrmodem_tpu_torch.dsp.doppler import Doppler
+    from sdrmodem_tpu_torch.utils.convert import doppler_tables_from_numpy, segment_tables
+
+    rows = {k: d.device_segments(block, +1, max_batch=max_batch) for k, d in dops.items()}
+    s_rows = Doppler.max_rows(block, DOPPLER["sampling_freq"], max_batch)
+    return doppler_tables_from_numpy(segment_tables(rows, s_rows, lanes), lanes, device=dev)
 
 
 def cuda_ms(torch, fn, reps):
@@ -88,6 +139,29 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+def counters():
+    from sdrmodem_tpu_torch.ops import clock as clock_ops
+    from sdrmodem_tpu_torch.ops import fir as fir_ops
+    from sdrmodem_tpu_torch.ops import front as front_ops
+
+    return {"front": (front_ops, "launches"), "clock": (clock_ops, "launches"),
+            "fir": (fir_ops, "launches"), "fir_tpu": (fir_ops, "fir_tpu_launches")}
+
+
+def counted(torch, path, want, fn):
+    """Run one path of the main run with every launch count set to 0 just
+    before it and read just after; fail if a kernel in ``want`` never ran."""
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+    log(f"[main] {path}: launches {json.dumps(counts)}")
+    for name in want:
+        need(counts[name] > 0, f"{path}: kernel {name} was never launched")
+    return out, counts
+
+
 def phase_build():
     from sdrmodem_tpu_torch.ops import _build
 
@@ -100,8 +174,8 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
 
 
-def phase_check(torch, dev):
-    """Kernels vs plain versions at 128 x 65536, three blocks each."""
+def check_front_and_clock(torch, dev):
+    """Front and clock kernels vs plain at 128 x 65536, three blocks each."""
     from sdrmodem_tpu_torch.dsp.clock_recovery import chunk_plan, clock_mm_batched_full
     from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig, float_to_int8
     from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline, DemodStateFull
@@ -154,7 +228,104 @@ def phase_check(torch, dev):
         need(symbols > 0, f"{name}: the clock emitted no symbols")
 
 
+def lucky7_taps():
+    """(name, reversed float32 taps) of the lucky7 LPF2, LPF1 and DC FIRs."""
+    from sdrmodem_tpu_torch.dsp.elementwise import dc_blocker_taps
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+
+    cfg = FskDemodConfig(*LUCKY7)
+    taps = {"lpf2": cfg.lpf2_taps(), "lpf1": cfg.lpf1_taps(), "dc": dc_blocker_taps(cfg.dc_length)}
+    return {k: np.asarray(t, np.float32)[::-1].copy() for k, t in taps.items()}
+
+
+def check_fir(torch, dev):
+    """B3 and B8 vs plain at 128 lanes x 65536; the last windows run off
+    the end of the input (rows past it read as zeros)."""
+    from sdrmodem_tpu_torch.ops import fir as fir_ops
+
+    x = capture_lanes(torch, dev, CHECK_BLOCK, LANES)[:, :LANES].contiguous()
+    err = {}
+    for name, rev in lucky7_taps().items():
+        rev_t = torch.from_numpy(rev).to(dev)
+        for stride in (1, 2):
+            n_out = CHECK_BLOCK // stride
+            y = fir_ops.conv1d_banded_tm(x, rev_t, stride, n_out, col_offset=BAND_OFFSET)
+            y_p = fir_ops.conv1d_banded_tm_plain(x, rev_t, stride, n_out, col_offset=BAND_OFFSET)
+            torch.cuda.synchronize()
+            need(y.shape == (n_out, LANES) and torch.isfinite(y).all().item(), f"fir {name}: output")
+            err[f"conv1d_banded_tm {name} T={len(rev)} stride={stride}"] = (y - y_p).abs().max().item()
+    taps = lucky7_taps()["lpf2"][::-1].copy()
+    for d in (1, 2):
+        y = fir_ops.fir_tpu(x, taps, d)
+        y_p = fir_ops.fir_tpu_plain(x, taps, d)
+        torch.cuda.synchronize()
+        need(y.shape == (-(-CHECK_BLOCK // d), LANES), "fir_tpu: output shape")
+        err[f"fir_tpu T={len(taps)} d={d}"] = (y - y_p).abs().max().item()
+    log(f"[check] fir: max |kernel - plain| {json.dumps(err)} (band offset {BAND_OFFSET})")
+    need(max(err.values()) <= FRONT_ATOL, f"fir kernels differ from plain by {max(err.values())}")
+
+
+def check_doppler_front(torch, dev):
+    """The front with Doppler tables, kernel vs plain, on the raw lucky7 pass
+    (three blocks, state carried): rows on lanes 0-63, none on 64-127, which
+    must equal a run without Doppler bit for bit.  Then fused vs banded,
+    bit for bit, with and without Doppler."""
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline, DemodStateFull
+    from sdrmodem_tpu_torch.ops.front import banded_front, fused_front, fused_front_plain
+
+    pipe = DemodPipeline(FskDemodConfig(*LUCKY7), CHECK_BLOCK, device=dev)
+    taps = pipe.front_taps
+    half = LANES // 2
+    x_all = capture_lanes(torch, dev, 3 * CHECK_BLOCK, LANES, "lucky7.cf32")
+    dops = lane_dopplers(range(half))
+    st_k = st_p = st_0 = pipe.init_full_state(LANES)
+    free = list(range(half, LANES))
+    free_iq = free + [LANES + k for k in free]
+    err = dict(y3=0.0, mixed_tail=0.0, quad_prev=0.0, lpf2=0.0, dc=0.0)
+    for blk in range(3):
+        x = x_all[blk * CHECK_BLOCK : (blk + 1) * CHECK_BLOCK]
+        dop = doppler_tables(dops, CHECK_BLOCK, LANES, dev)
+        y3_k, f_k = fused_front(x, *st_k[:4], taps, dop)
+        y3_p, f_p = fused_front_plain(x, *st_p[:4], taps, dop)
+        y3_0, f_0 = fused_front(x, *st_0[:4], taps)
+        y3_b, f_b = banded_front(x, *st_k[:4], taps, dop)
+        y3_b0, f_b0 = banded_front(x, *st_0[:4], taps)
+        torch.cuda.synchronize()
+        for key, a, b in (("y3", y3_k, y3_p), ("mixed_tail", f_k[0], f_p[0]),
+                          ("quad_prev", f_k[1], f_p[1]), ("lpf2", f_k[2], f_p[2]), ("dc", f_k[3], f_p[3])):
+            err[key] = max(err[key], (a - b).abs().max().item())
+        need(not torch.equal(y3_k[:, :half], y3_0[:, :half]), "the Doppler rows changed nothing")
+        need(torch.equal(y3_k[:, free], y3_0[:, free])
+             and torch.equal(f_k[0][:, free_iq], f_0[0][:, free_iq])
+             and torch.equal(f_k[1][:, free_iq], f_0[1][:, free_iq])
+             and torch.equal(f_k[2][:, free], f_0[2][:, free])
+             and torch.equal(f_k[3][:, free], f_0[3][:, free]),
+             f"block {blk}: row-free lanes differ from the run without Doppler")
+        need(torch.equal(y3_b, y3_k) and all(torch.equal(a, b) for a, b in zip(f_b, f_k)),
+             f"block {blk}: banded front differs from fused with Doppler")
+        need(torch.equal(y3_b0, y3_0) and all(torch.equal(a, b) for a, b in zip(f_b0, f_0)),
+             f"block {blk}: banded front differs from fused without Doppler")
+        st_k = DemodStateFull(*f_k, st_k.clock)
+        st_p = DemodStateFull(*f_p, st_p.clock)
+        st_0 = DemodStateFull(*f_0, st_0.clock)
+    log(f"[check] doppler front: max |kernel - plain| {json.dumps(err)}; row-free lanes equal "
+        "the run without Doppler; fused == banded with and without Doppler, bit for bit")
+    need(err["y3"] <= FRONT_ATOL, f"doppler front: y3 error {err['y3']}")
+    need(err["mixed_tail"] <= MIXED_ATOL, f"doppler front: mixed tail error {err['mixed_tail']}")
+    need(err["quad_prev"] <= 1e-6 and max(err["lpf2"], err["dc"]) <= FRONT_ATOL,
+         "doppler front: tail error")
+
+
+def phase_check(torch, dev):
+    check_front_and_clock(torch, dev)
+    check_fir(torch, dev)
+    check_doppler_front(torch, dev)
+
+
 def phase_golden(torch, dev):
+    from sdrmodem_tpu_torch.dsp.doppler import Doppler
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
     from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
     from sdrmodem_tpu_torch.utils.parity import GOLDEN_CASES, demod_capture, golden_report
 
@@ -167,23 +338,74 @@ def phase_golden(torch, dev):
         need(rep["hard_decision_agreement"] == 1.0, f"{name}: hard decisions differ")
         need(rep["max_lsb"] <= 2, f"{name}: {rep['max_lsb']} LSB from the golden")
 
+    # the raw pass through the server's call, rows every 2000 samples (the
+    # buffer the goldens were recorded with)
+    iq = np.fromfile(FIXTURES / "lucky7.cf32", np.complex64)
+    golden = np.fromfile(FIXTURES / "lucky7.expected.s8", np.int8)
+    block = 8000
+    pipe = DemodPipeline(FskDemodConfig(*LUCKY7), block, device=dev)
+    step = pipe.make_batched_step_full("pallas", doppler=True, layout="fanout")
+    state = pipe.init_full_state(1)
+    dops = {0: Doppler(**DOPPLER, start_time_seconds=PASS_START)}
+    out = []
+    for i in range(0, len(iq), block):
+        dop = doppler_tables(dops, block, 1, dev, max_batch=2000)
+        blk = iq[i : i + block]
+        x = torch.from_numpy(np.stack([blk.real, blk.imag]).astype(np.float32)).to(dev)
+        state, sym, cnt = step(state, x, dop)
+        sym, cnt = sym[0].cpu().numpy(), cnt[0].cpu().numpy()
+        out += [sym[k, :n] for k, n in enumerate(cnt)]
+    got = np.concatenate(out)
+    rep = golden_report(got, golden)
+    m = min(len(got), len(golden))
+    within = float((np.abs(got[:m].astype(np.int32) - golden[:m].astype(np.int32)) <= 2).mean())
+    rep["within_2_lsb"] = within
+    log(f"[golden] lucky7 raw pass, server's Doppler step (fanout): {json.dumps(rep)}")
+    need(rep["symbols"] >= 0.99 * len(golden), "doppler golden: too few symbols")
+    need(within >= 0.995, f"doppler golden: only {within} within ±2 LSB")
 
-def front_cost(c, b, taps, d):
+
+def front_cost(c, b, taps, d, dop=None):
     """(bytes, flops) the front end must move and do at this shape: input
-    block, histories and taps read once, y3 and the new tails written once;
-    two flops a tap of LPF1 and LPF2, ~16 a quad-demod output (6 for the
-    conjugate product, ~10 for the table arctangent and gain) and 13 a DC
-    blocker output.  The DC blocker is four length-L moving averages and a
-    delay line (dsp/elementwise.py:dc_blocker_taps), which running sums
-    take at an add, a subtract and a scale each, and one subtract: the
-    kernel's (4L-3)-tap FIR form of it is work beyond this bound."""
+    block, histories, taps and Doppler tables read once, y3 and the new
+    tails written once; two flops a tap of LPF1 and LPF2, ~16 a quad-demod
+    output (6 for the conjugate product, ~10 for the table arctangent and
+    gain) and 13 a DC blocker output.  The DC blocker is four length-L
+    moving averages and a delay line (dsp/elementwise.py:dc_blocker_taps),
+    which running sums take at an add, a subtract and a scale each, and one
+    subtract: the kernel's (4L-3)-tap FIR form of it is work beyond this
+    bound.  With Doppler, the tables are read once and the NCO's flops are
+    those of ``nco_cost``."""
     t1, t2 = taps.rev1.numel(), taps.rev2.numel()
     t3 = taps.rev_dc.numel() if taps.rev_dc is not None else 0
     n2 = b // d
     hist_words = (t1 - 1) * 2 * c + 2 * c + (t2 - 1) * c + max(t3 - 1, 0) * c
     words = b * 2 * c + n2 * c + 2 * hist_words + t1 + t2 + t3 + 257
     flops = 2 * (b * 2 * c * t1 + n2 * c * t2) + 16 * b * c + (13 * n2 * c if t3 else 0)
+    if dop is not None:
+        words += 4 * dop[0].numel()
+        flops += nco_cost(b, c, dop)[1]
     return 4 * words, flops
+
+
+def nco_cost(rows, c, dop):
+    """(bytes, flops) of the Doppler stage alone: the (rows, 2C) block read
+    and written once and the four tables read once.  Each lane-sample that
+    a table row covers takes that one row's ramp (~10 flops: the row offset
+    and the two-level ramp), ~40 for the sincos and 6 for the rotation; a
+    sample no row covers passes through.  The rows are disjoint
+    (Doppler.device_segments), so the kernel's compare-and-select over every
+    row at every sample (the TPU kernel's gather-free form) is work beyond
+    this bound."""
+    starts, ends = dop[0], dop[1]
+    covered = (ends.clamp(max=rows) - starts.clamp(min=0)).clamp(min=0).double().sum().item()
+    return 4 * (2 * rows * 2 * c + 4 * starts.numel()), 56 * covered
+
+
+def fir_cost(rows, lanes, n_out, t):
+    """(bytes, flops): the input and taps read once, the output written
+    once; a multiply-add a tap an output."""
+    return 4 * (rows * lanes + n_out * lanes + t), 2 * n_out * lanes * t
 
 
 def clock_cost(n, c, sfx, n_chunks, k, symbols):
@@ -200,62 +422,116 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_main(torch, dev):
-    import torch.nn.functional as F
+def drive(torch, step, state, inputs):
+    """One warm-up step on inputs[0], then the rest timed as one CUDA-event
+    window.  Returns (ms a timed step, first outputs, every timed output)."""
+    state, sym, cnt = step(state, *inputs[0])
+    first = (sym, cnt)
+    torch.cuda.synchronize()
 
-    from sdrmodem_tpu_torch.dsp.clock_recovery import chunk_plan, clock_mm_batched_full
+    def run(state=state):
+        outs = []
+        for args in inputs[1:]:
+            state, sym, cnt = step(state, *args)
+            outs.append((sym, cnt))
+        return outs
+
+    ms, outs = cuda_ms(torch, run, 1)
+    return ms / (len(inputs) - 1), first, outs
+
+
+def hold_front(what, got, plain, doppler):
+    """Gate a front's (y3, tails) against its plain version's: y3 and the
+    FIR tails within FRONT_ATOL; lpf1_hist and quad_prev bit for bit without
+    Doppler, and within the NCO's ulps (the mixed tail) with it.  Returns
+    y3's error."""
+    (y3, f), (y3_p, f_p) = got, plain
+    err = dict(y3=(y3 - y3_p).abs().max().item())
+    for key, a, b in zip(("lpf1", "quad_prev", "lpf2", "dc"), f, f_p):
+        if b is not None and b.numel():
+            err[key] = (a - b).abs().max().item()
+    log(f"[main] {what}: max |kernel - plain| {json.dumps(err)}")
+    need(err["y3"] <= FRONT_ATOL, f"{what}: y3 error {err['y3']} > {FRONT_ATOL}")
+    need(err["lpf1"] <= (MIXED_ATOL if doppler else 0.0), f"{what}: lpf1_hist error {err['lpf1']}")
+    need(err["quad_prev"] <= (1e-6 if doppler else 0.0), f"{what}: quad_prev error {err['quad_prev']}")
+    need(max(err["lpf2"], err.get("dc", 0.0)) <= FRONT_ATOL, f"{what}: FIR tail error")
+    return err["y3"]
+
+
+def check_outputs(torch, what, sym, cnt, c, n_chunks, per_chunk):
+    need(sym.dtype == torch.int8 and cnt.shape == (c, n_chunks), f"{what}: output shape")
+    lo, hi = cnt.min().item(), cnt.max().item()
+    need(0.9 * per_chunk <= lo and hi <= 1.1 * per_chunk + 2, f"{what}: counts {lo}..{hi}")
+    need(sym.abs().max().item() > 64, f"{what}: symbols look empty")
+
+
+def server_breakdown(torch, pipe, x, dop, step_ms):
+    """Where the server-shape step's time goes: the fanout staging, the
+    NCO stage, the fused front (NCO included) and the clock, each timed
+    alone on the step's own inputs (not counted as main-path launches)."""
+    from sdrmodem_tpu_torch.dsp.clock_recovery import clock_mm_batched_full
+    from sdrmodem_tpu_torch.ops import front as front_ops
+
+    c = LANES
+    state = pipe.init_full_state(c)
+    x_tm = pipe.to_time_major(x, c, "fanout")
+    front_args = (x_tm, *state[:4], pipe.front_taps, dop)
+    front_ops.fused_front(*front_args)  # warm-up
+    parts = {
+        "fanout staging": cuda_ms(torch, lambda: pipe.to_time_major(x, c, "fanout"), 5)[0],
+        "nco stage": cuda_ms(torch, lambda: front_ops.nco_mix(x_tm, dop), 5)[0],
+        "front with nco": cuda_ms(torch, lambda: front_ops.fused_front(*front_args), 5)[0],
+    }
+    y3, _ = front_ops.fused_front(*front_args)
+    p = pipe.config.clock_params()
+    parts["clock"] = cuda_ms(
+        torch, lambda: clock_mm_batched_full(y3, state.clock, bank=pipe.bank, **p), 3
+    )[0]
+    rest = step_ms - parts["fanout staging"] - parts["front with nco"] - parts["clock"]
+    shares = {k: f"{v:.4f} ms ({100 * v / step_ms:.1f}%)" for k, v in parts.items()}
+    log(f"[main] (b) server step {step_ms:.4f} ms, parts timed alone: {json.dumps(shares)}; "
+        f"the rest (tails, int8, host) {rest:.4f} ms by subtraction")
+
+
+def phase_main(torch, dev):
+    """The main-path runs (a), (b) and (c), each counted on its own."""
+    from sdrmodem_tpu_torch.dsp.clock_recovery import chunk_plan
     from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
     from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
-    from sdrmodem_tpu_torch.ops import clock as clock_ops
+    from sdrmodem_tpu_torch.ops import fir as fir_ops
     from sdrmodem_tpu_torch.ops import front as front_ops
 
     c, b = LANES, MAIN_BLOCK
     pipe = DemodPipeline(FskDemodConfig(*LUCKY7), b, device=dev)
     p = pipe.config.clock_params()
+    sfx = pipe.init_full_state(1).clock.suffix.shape[0]
     x_tm = capture_lanes(torch, dev, b, c)
     x_fan = torch.stack([x_tm[:, 0], x_tm[:, c]]).contiguous()  # lane 0's stream, shared
-    inputs = {"tm": x_tm, "fanout": x_fan}
     torch.cuda.synchronize()
-
-    # ---- the main path, counted
-    front_ops.launches = 0
-    clock_ops.launches = 0
+    totals = {name: 0 for name in counters()}
     results = {}
-    for layout, x in inputs.items():
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] += v
+
+    # ---- (a) the bench.py shape
+    for layout, x in {"tm": x_tm, "fanout": x_fan}.items():
         step = pipe.make_batched_step_full(layout=layout)
-        state = pipe.init_full_state(c)
-        state, sym, cnt = step(state, x)  # warm-up
-        first = (sym, cnt)
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
-
-        def run(state=state):
-            out = None
-            for _ in range(MAIN_STEPS):
-                state, sym, cnt = step(state, x)
-                out = (state, sym, cnt)
-            return out
-
-        ms, (state, sym, cnt) = cuda_ms(torch, run, 1)
-        wall = time.perf_counter() - t0
-        ms_step = ms / MAIN_STEPS
-        results[layout] = dict(first=first, last=(sym, cnt), ms_step=ms_step)
-        log(f"[main] {layout}: {ms_step:.4f} ms/step (CUDA events), "
-            f"{c * b / (ms_step * 1e-3) / 1e6:.1f} Msamples/s; wall {wall:.3f} s for {MAIN_STEPS} steps")
-    launches = {"front": front_ops.launches, "clock": clock_ops.launches}
-    log(f"[main] launches during the main path: {json.dumps(launches)}")
-    need(launches["front"] > 0 and launches["clock"] > 0, "a kernel of the main path never ran")
-
-    # ---- what came out
+        (ms, first, outs), counts = counted(
+            torch, f"(a) {layout} 128 x 2^20", ("front", "clock"),
+            lambda: drive(torch, step, pipe.init_full_state(c), [(x,)] * (MAIN_STEPS + 1)),
+        )
+        add(counts)
+        results[layout] = dict(first=first, last=outs[-1], ms_step=ms)
+        log(f"[main] (a) {layout}: {ms:.4f} ms/step (CUDA events), "
+            f"{c * b / (ms * 1e-3) / 1e6:.1f} Msamples/s; wall {time.perf_counter() - t0:.3f} s")
     n2 = b // pipe.config.decimation
-    chunk = chunk_plan(n2, c, pipe.init_full_state(1).clock.suffix.shape[0], **p)["chunk"]
-    per_chunk = chunk / p["omega"]
+    chunk = chunk_plan(n2, c, sfx, **p)["chunk"]
     for layout, res in results.items():
         for sym, cnt in (res["first"], res["last"]):
-            need(sym.dtype == torch.int8 and cnt.shape == (c, n2 // chunk), f"{layout}: output shape")
-            lo, hi = cnt.min().item(), cnt.max().item()
-            need(0.9 * per_chunk <= lo and hi <= 1.1 * per_chunk + 2, f"{layout}: counts {lo}..{hi}")
-            need(sym.abs().max().item() > 64, f"{layout}: symbols look empty")
+            check_outputs(torch, layout, sym, cnt, c, n2 // chunk, chunk / p["omega"])
     # lanes are independent: a one-lane run gives lane 0's symbols bit for bit
     one = DemodPipeline(FskDemodConfig(*LUCKY7), b, device=dev)
     _, sym1, cnt1 = one.make_batched_step_full(layout="fanout")(one.init_full_state(1), x_fan)
@@ -266,24 +542,163 @@ def phase_main(torch, dev):
     need(torch.equal(cnt_fan, cnt1.expand(c, -1)) and torch.equal(sym_fan, sym1.expand(c, -1, -1)),
          "fanout lanes differ from a one-lane run")
     log("[main] lane 0 of tm and every fanout lane equal a one-lane run, bit for bit")
+    # the front on path (a)'s own input and configuration (no Doppler) against plain
+    st = pipe.init_full_state(c)
+    front_errs = [hold_front(
+        "(a) front 128 x 2^20, no Doppler",
+        front_ops.fused_front(x_tm, *st[:4], pipe.front_taps),
+        front_ops.fused_front_plain(x_tm, *st[:4], pipe.front_taps), doppler=False,
+    )]
+    del x_tm, x_fan, one, st
 
-    # ---- each kernel alone at the main path's shape, against its plain version
+    # ---- (b) the server's step at its default shape, Doppler on every lane
+    bs = SERVER_BLOCK
+    spipe = DemodPipeline(FskDemodConfig(*LUCKY7), bs, device=dev)
+    raw = capture_lanes(torch, dev, bs, 1, "lucky7.cf32")
+    x_srv = torch.stack([raw[:, 0], raw[:, 1]]).contiguous()  # one shared (2, B) stream
+    t0 = time.perf_counter()
+    dops = lane_dopplers(range(c))
+    tables = [doppler_tables(dops, bs, c, dev) for _ in range(MAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    log(f"[main] (b) Doppler tables for {MAIN_STEPS + 1} steps x {c} lanes "
+        f"({tables[0][0].shape[0]} rows a step) built on the host in {time.perf_counter() - t0:.3f} s, "
+        "outside the timed window")
+    server = {}
+    for front, want in (("fused", ("front", "clock")), ("banded", ("front", "fir", "clock"))):
+        step = spipe.make_batched_step_full("pallas", doppler=True, layout="fanout", front=front)
+        (ms, first, outs), counts = counted(
+            torch, f"(b) server 128 x 262144 fanout doppler front={front}", want,
+            lambda: drive(torch, step, spipe.init_full_state(c), [(x_srv, t) for t in tables]),
+        )
+        add(counts)
+        server[front] = dict(ms_step=ms, outs=[first, *outs])
+        log(f"[main] (b) server step, front={front}: {ms:.4f} ms/step (CUDA events), "
+            f"{c * bs / (ms * 1e-3) / 1e6:.1f} Msamples/s")
+    n2 = bs // spipe.config.decimation
+    chunk = chunk_plan(n2, c, sfx, **p)["chunk"]
+    for (sf, cf), (sb, cb) in zip(server["fused"]["outs"], server["banded"]["outs"]):
+        check_outputs(torch, "server step", sf, cf, c, n2 // chunk, chunk / p["omega"])
+        need(torch.equal(sf, sb) and torch.equal(cf, cb), "server step: fused and banded differ")
+    log("[main] (b) fused and banded server steps give the same symbols and counts, bit for bit")
+    # both fronts and B3 on path (b)'s own inputs (fanout staging, the first
+    # step's tables and a fresh state) against their plain versions
+    st = spipe.init_full_state(c)
+    xs_tm = spipe.to_time_major(x_srv, c, "fanout")
+    front_args = (xs_tm, *st[:4], spipe.front_taps, tables[0])
+    plain = front_ops.fused_front_plain(*front_args)
+    for name, fn in (("fused", front_ops.fused_front), ("banded", front_ops.banded_front)):
+        front_errs.append(hold_front(f"(b) {name} front 128 x 262144, Doppler", fn(*front_args),
+                                     plain, doppler=True))
+    del plain
+    fir_errs = {}
+
+    def fir_both(xw, rev, stride, n_out):
+        y = fir_ops.conv1d_banded_tm(xw, rev, stride, n_out)
+        y_p = fir_ops.conv1d_banded_tm_plain(xw, rev, stride, n_out)
+        fir_errs[f"({xw.shape[0]}, {xw.shape[1]}) T={rev.numel()} stride={stride}"] = (
+            (y - y_p).abs().max().item())
+        return y
+
+    front_ops._front_stages(*front_args, mix=front_ops.nco_mix, fir=fir_both, quad=front_ops.quad_demod)
+    log(f"[main] (b) fir at the banded front's three shapes: max |kernel - plain| {json.dumps(fir_errs)}")
+    need(max(fir_errs.values()) <= FRONT_ATOL, f"(b) fir differs from plain by {max(fir_errs.values())}")
+    del st, xs_tm, front_args
+    server_breakdown(torch, spipe, x_srv, tables[0], server["fused"]["ms_step"])
+
+    # ---- (c) fir_tpu at a real width: the LPF2 stage's stream, decimation 2
+    x_fir = capture_lanes(torch, dev, b, c)[:, :c].contiguous()
+    lpf2 = lucky7_taps()["lpf2"][::-1].copy()
+
+    def fir_path():
+        fir_ops.fir_tpu(x_fir, lpf2, 2)  # warm-up
+        return cuda_ms(torch, lambda: fir_ops.fir_tpu(x_fir, lpf2, 2), 3)
+
+    (fir_tpu_ms, y_fir), counts = counted(torch, "(c) fir_tpu 128 x 2^20 d=2", ("fir_tpu",), fir_path)
+    add(counts)
+    need(y_fir.shape == (b // 2, c) and torch.isfinite(y_fir).all().item(), "fir_tpu: output")
+    log(f"[main] (c) fir_tpu: {fir_tpu_ms:.4f} ms a call")
+    log(f"[main] launches over every main-path run: {json.dumps(totals)}")
+    return dict(totals=totals, fir_tpu_ms=fir_tpu_ms, x_fir=x_fir, y_fir=y_fir, lpf2=lpf2,
+                server_ms={k: v["ms_step"] for k, v in server.items()},
+                front_err=max(front_errs), fir_err=max(fir_errs.values()))
+
+
+def phase_kernels(torch, dev, main):
+    """Each kernel alone at its path's shape, against its plain version."""
+    import torch.nn.functional as F
+
+    from sdrmodem_tpu_torch.dsp.clock_recovery import chunk_plan, clock_mm_batched_full
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.ops import clock as clock_ops
+    from sdrmodem_tpu_torch.ops import fir as fir_ops
+    from sdrmodem_tpu_torch.ops import front as front_ops
+
+    c, b = LANES, MAIN_BLOCK
+    pipe = DemodPipeline(FskDemodConfig(*LUCKY7), b, device=dev)
+    p = pipe.config.clock_params()
+    taps = pipe.front_taps
+    x_tm = capture_lanes(torch, dev, b, c, "lucky7.cf32")
     state = pipe.init_full_state(c)
-    front_args = (x_tm, *state[:4], pipe.front_taps)
+    dop = doppler_tables(lane_dopplers(range(c)), b, c, dev)
+    s_rows = dop[0].shape[0]
+    torch.cuda.synchronize()
+
+    # ---- front (B1) with its Doppler stage, 128 x 2^20
+    front_args = (x_tm, *state[:4], taps, dop)
     front_ops.fused_front(*front_args)  # warm-up
     front_ms, (y3, f_k) = cuda_ms(torch, lambda: front_ops.fused_front(*front_args), 3)
+    nodop_ms, (y3_0, _) = cuda_ms(torch, lambda: front_ops.fused_front(*front_args[:-1]), 3)
     front_ops.fused_front_plain(*front_args)
     front_plain_ms, (y3_p, f_p) = cuda_ms(torch, lambda: front_ops.fused_front_plain(*front_args), 2)
     front_err = (y3 - y3_p).abs().max().item()
-    need(front_err <= FRONT_ATOL and torch.equal(f_k[0], f_p[0]) and torch.equal(f_k[1], f_p[1]),
-         f"front at full width: {front_err}")
-    work = torch.cat([state.lpf1_hist, x_tm]).T.contiguous().unsqueeze(1)
-    w1 = pipe.front_taps.rev1.view(1, 1, -1)
-    with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
-        F.conv1d(work, w1)
-        lib_ms, _ = cuda_ms(torch, lambda: F.conv1d(work, w1), 3)
-    del work
+    mixed_err = (f_k[0] - f_p[0]).abs().max().item()
+    need(front_err <= FRONT_ATOL and mixed_err <= MIXED_ATOL,
+         f"front with Doppler at full width: y3 {front_err}, mixed tail {mixed_err}")
+    nco = {}
+    for rows in (SERVER_BLOCK, MAIN_BLOCK):
+        xs = x_tm[:rows]
+        dop_s = dop if rows == b else doppler_tables(lane_dopplers(range(c)), rows, c, dev)
+        front_ops.nco_mix(xs, dop_s)
+        nco[rows], _ = cuda_ms(torch, lambda: front_ops.nco_mix(xs, dop_s), 5)
+        nco[f"{rows}_rows"] = dop_s[0].shape[0]
+        nco[f"{rows}_bound"] = bound(*nco_cost(rows, c, dop_s))
+    log(f"[kernels] front with Doppler ({s_rows} rows) {front_ms:.4f} ms, without {nodop_ms:.4f} ms; "
+        f"NCO stage alone {json.dumps(nco)} (ms, table rows and bound, at 128 lanes x rows)")
+    del y3_p, f_p, y3_0
 
+    # ---- fir (B3) at the LPF1 shape: [lpf1_hist | block], 2^20 x 256 x 157 taps
+    work = torch.cat([state.lpf1_hist, x_tm])
+    t1 = taps.rev1.numel()
+    fir_ops.conv1d_banded_tm(work, taps.rev1, 1, b)
+    fir_ms, y1 = cuda_ms(torch, lambda: fir_ops.conv1d_banded_tm(work, taps.rev1, 1, b), 3)
+    fir_ops.conv1d_banded_tm_plain(work, taps.rev1, 1, b)
+    fir_plain_ms, y1_p = cuda_ms(torch, lambda: fir_ops.conv1d_banded_tm_plain(work, taps.rev1, 1, b), 2)
+    fir_err = (y1 - y1_p).abs().max().item()
+    need(fir_err <= FRONT_ATOL, f"fir at the LPF1 shape: {fir_err}")
+    del y1, y1_p
+    work_cn = work.T.contiguous().unsqueeze(1)
+    w1 = taps.rev1.view(1, 1, -1)
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+        F.conv1d(work_cn, w1)
+        lib_ms, _ = cuda_ms(torch, lambda: F.conv1d(work_cn, w1), 3)
+    del work_cn
+
+    # ---- fir_tpu (B8) at path (c)'s shape
+    x_fir, lpf2 = main["x_fir"], main["lpf2"]
+    fir_ops.fir_tpu_plain(x_fir, lpf2, 2)
+    fir_tpu_plain_ms, y_p = cuda_ms(torch, lambda: fir_ops.fir_tpu_plain(x_fir, lpf2, 2), 2)
+    fir_tpu_err = (main["y_fir"] - y_p).abs().max().item()
+    need(fir_tpu_err <= FRONT_ATOL, f"fir_tpu at full width: {fir_tpu_err}")
+    t2 = len(lpf2)
+    xp_cn = F.pad(x_fir.T.contiguous().unsqueeze(1), (t2 - 1, 0))
+    w2 = torch.from_numpy(lpf2[::-1].copy()).to(dev).view(1, 1, -1)
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+        F.conv1d(xp_cn, w2, stride=2)
+        fir_tpu_lib_ms, _ = cuda_ms(torch, lambda: F.conv1d(xp_cn, w2, stride=2), 3)
+    del xp_cn, y_p
+
+    # ---- clock (B2) on the front's y3
     ck = state.clock
     clock_ms, (outs, counts, _) = cuda_ms(
         torch, lambda: clock_mm_batched_full(y3, ck, bank=pipe.bank, **p), 3
@@ -297,20 +712,28 @@ def phase_main(torch, dev):
         ),
         1,
     )
-    log(f"[main] plain clock at full width took {time.perf_counter() - t0:.3f} s wall")
+    log(f"[kernels] plain clock at full width took {time.perf_counter() - t0:.3f} s wall")
     need(torch.equal(counts, c_p.T), "clock at full width: counts differ from plain")
     clock_err = (outs - o_p.permute(2, 0, 1)).abs().max().item()
     need(clock_err * 127 <= 1.0, f"clock at full width: {clock_err}")
     symbols = int(counts.sum().item())
 
-    fb, ff = front_cost(c, b, pipe.front_taps, pipe.config.decimation)
-    n_chunks = counts.shape[1]
-    cb, cf = clock_cost(y3.shape[0], c, ck.suffix.shape[0], n_chunks, plan["num_symbols"], symbols)
-    f_bound, f_by = bound(fb, ff)
-    c_bound, c_by = bound(cb, cf)
-    log(f"[main] front {front_ms:.4f} ms (plain {front_plain_ms:.4f}, conv1d LPF1 {lib_ms:.4f}, "
+    f_bound, f_by = bound(*front_cost(c, b, taps, pipe.config.decimation, dop))
+    c_bound, c_by = bound(*clock_cost(y3.shape[0], c, ck.suffix.shape[0], counts.shape[1],
+                                      plan["num_symbols"], symbols))
+    r_bound, r_by = bound(*fir_cost(work.shape[0], 2 * c, b, t1))
+    n_fir = main["y_fir"].shape[0]
+    t_bound, t_by = bound(*fir_cost(x_fir.shape[0], c, n_fir, t2))
+    log(f"[kernels] front {front_ms:.4f} ms (plain {front_plain_ms:.4f}, conv1d LPF1 {lib_ms:.4f}, "
         f"bound {f_bound:.4f} by {f_by}); clock {clock_ms:.4f} ms (plain {clock_plain_ms:.4f}, "
-        f"bound {c_bound:.4f} by {c_by}); {symbols} symbols")
+        f"bound {c_bound:.4f} by {c_by}); fir {fir_ms:.4f} ms (plain {fir_plain_ms:.4f}, conv1d "
+        f"{lib_ms:.4f}, bound {r_bound:.4f} by {r_by}); fir_tpu {main['fir_tpu_ms']:.4f} ms (plain "
+        f"{fir_tpu_plain_ms:.4f}, conv1d {fir_tpu_lib_ms:.4f}, bound {t_bound:.4f} by {t_by}); "
+        f"{symbols} symbols")
+    launches = main["totals"]
+    # each row's error: the most over its comparisons at the paths' shapes
+    front_err = max(front_err, main["front_err"])
+    fir_err = max(fir_err, main["fir_err"])
     return [
         dict(name="front", route="cuda", source="sdrmodem_tpu_torch/csrc/front.cu",
              replaces="sdrmodem_tpu/ops/pallas_front.py:118", launches=launches["front"],
@@ -320,6 +743,14 @@ def phase_main(torch, dev):
              replaces="sdrmodem_tpu/ops/pallas_clock.py:326", launches=launches["clock"],
              max_abs_err=clock_err, ms=clock_ms, plain_ms=clock_plain_ms, bound_ms=c_bound,
              bound_by=c_by, library_ms=None),
+        dict(name="fir", route="cuda", source="sdrmodem_tpu_torch/csrc/fir.cu",
+             replaces="sdrmodem_tpu/ops/pallas_fir.py:119", launches=launches["fir"],
+             max_abs_err=fir_err, ms=fir_ms, plain_ms=fir_plain_ms, bound_ms=r_bound,
+             bound_by=r_by, library_ms=lib_ms),
+        dict(name="fir_tpu", route="cuda", source="sdrmodem_tpu_torch/csrc/fir.cu",
+             replaces="sdrmodem_tpu/ops/pallas_fir.py:261", launches=launches["fir_tpu"],
+             max_abs_err=fir_tpu_err, ms=main["fir_tpu_ms"], plain_ms=fir_tpu_plain_ms,
+             bound_ms=t_bound, bound_by=t_by, library_ms=fir_tpu_lib_ms),
     ]
 
 
@@ -344,8 +775,11 @@ def main() -> int:
             fn()
             log(f"[{name}] passed in {time.perf_counter() - t0:.3f} s")
         t0 = time.perf_counter()
-        kernels = phase_main(torch, dev)
+        main_run = phase_main(torch, dev)
         log(f"[main] passed in {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        kernels = phase_kernels(torch, dev, main_run)
+        log(f"[kernels] passed in {time.perf_counter() - t0:.3f} s")
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -1,0 +1,79 @@
+// Per-lane Doppler NCO multiply over a time-major (rows, 2C) f32 IQ block:
+// the device half of Doppler correction, stage 0 of the front end.
+//
+// Replaces the Doppler stage of the TPU kernel
+// sdrmodem_tpu/ops/pallas_front.py:_front_kernel (lines 180-212), which
+// computes sdrmodem_tpu/dsp/elementwise.py:nco_mix_pair_tm in-tile.
+//
+// Bound on an H100: each sample reads its I and Q and writes them back
+// (16 bytes a lane-sample).  The table rows are disjoint, so a sample
+// needs the ramp of the one row that covers it (~10 operations), a sincos
+// (~40) and the rotation (6): ~56 operations against 16 bytes, whatever
+// the row count.  The stage is bound by bytes: ~0.16 ms at 128 lanes x
+// 2^18 and ~0.64 ms at 2^20 (3.35 TB/s), against ~0.03 and ~0.11 ms of
+// operations (67 TFLOP/s).
+//
+// Design: one thread per (row, lane) element, grid-stride, neighbouring
+// threads on neighbouring lanes so the block and the (5, S, C) tables are
+// read coalesced.  Each element walks every table row with a compare and a
+// select, the TPU kernel's gather-free form: ~10 operations and five table
+// loads a row, work beyond the bound that grows with the row count.  Every
+// product and sum is taken with a round-to-nearest
+// intrinsic in the order of the plain version (dsp/elementwise.py:
+// nco_mix_pair_tm), so nvcc contracts nothing into an FMA: a contracted
+// ramp would move the phase by an ulp of ~6000 rad (~5e-4).  cos and sin
+// are the accurate library functions (no fast math).  A lane with no
+// active row gets phase 0 exactly, cos 1 and sin 0, and passes through
+// bit for bit.  It runs as its own launch ahead of LPF1; folding it into
+// LPF1's loads is a later step.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+// tab is (5, S, C): starts, ends, adjs, ph0s and the per-4096 coarse steps
+// (float32 of mod(float64(adj) * 4096, 2 pi), computed by the wrapper).
+__global__ void nco_mix_tm_kernel(const float* __restrict__ x, int rows, int lanes,
+                                  const float* __restrict__ tab, int s_rows,
+                                  float* __restrict__ y) {
+  const long long n = (long long)rows * lanes;
+  const long long plane = (long long)s_rows * lanes;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
+       idx += (long long)gridDim.x * blockDim.x) {
+    const long long k = idx / lanes;
+    const int c = (int)(idx - k * lanes);
+    const float nrow = (float)k;  // exact: the wrapper keeps rows < 2^24
+    float ph = 0.f;
+    for (int s = 0; s < s_rows; ++s) {
+      const float* t = tab + (long long)s * lanes + c;
+      const float st = t[0], en = t[plane], adj = t[2 * plane];
+      const float ph0 = t[3 * plane], stp = t[4 * plane];
+      const bool active = nrow >= st && nrow < en;
+      const float dd = __fsub_rn(nrow, st);
+      const float kq = floorf(__fmul_rn(dd, 1.f / 4096.f));
+      const float mq = __fsub_rn(dd, __fmul_rn(kq, 4096.f));
+      const float ramp = __fadd_rn(__fadd_rn(ph0, __fmul_rn(mq, adj)), __fmul_rn(kq, stp));
+      ph = __fadd_rn(ph, active ? ramp : 0.f);
+    }
+    const float cs = cosf(ph), sn = sinf(ph);
+    const float* in = x + k * 2 * lanes;
+    float* out = y + k * 2 * lanes;
+    const float i = in[c], q = in[lanes + c];
+    out[c] = __fsub_rn(__fmul_rn(i, cs), __fmul_rn(q, sn));
+    out[lanes + c] = __fadd_rn(__fmul_rn(i, sn), __fmul_rn(q, cs));
+  }
+}
+
+cudaError_t launch_nco_mix(const float* x, int rows, int lanes, const float* tab,
+                           int s_rows, float* y, cudaStream_t stream) {
+  const long long n = (long long)rows * lanes;
+  const long long want = (n + 255) / 256;
+  const int grid = (int)(want < 8192 ? want : 8192);
+  nco_mix_tm_kernel<<<grid, 256, 0, stream>>>(x, rows, lanes, tab, s_rows, y);
+  return cudaGetLastError();
+}
+
+}  // namespace

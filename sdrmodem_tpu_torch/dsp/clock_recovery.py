@@ -66,7 +66,7 @@ class ClockFullState(NamedTuple):
 
 
 def initial_full_state(
-    omega: float, channels: int, mu: float = 0.5, device=None
+    omega: float, channels: int, mu: float = 0.5, *, device
 ) -> ClockFullState:
     f32 = dict(dtype=torch.float32, device=device)
     return ClockFullState(

@@ -1,6 +1,6 @@
 """Elementwise blocks of the demodulator front end.
 
-Counterpart of ``sdrmodem_tpu/dsp/elementwise.py:28-69, 258-280``:
+Counterpart of ``sdrmodem_tpu/dsp/elementwise.py:28-69, 258-280, 347-388``:
 
 - ``fast_atan2``        — the reference's 257-entry LUT arctangent
                           (src/math/fast_atan2f.c:87-150), a real table
@@ -8,10 +8,16 @@ Counterpart of ``sdrmodem_tpu/dsp/elementwise.py:28-69, 258-280``:
                           gather-free polynomial variants are not ported;
 - ``dc_blocker_length`` / ``dc_blocker_taps``
                         — the 4-stage moving-average DC blocker
-                          (src/dsp/dc_blocker.c:56-119) as one causal FIR.
+                          (src/dsp/dc_blocker.c:56-119) as one causal FIR;
+- ``nco_steps`` / ``nco_mix_pair_tm``
+                        — the per-lane Doppler NCO multiply, the device
+                          half of Doppler correction (dsp/doppler.py keeps
+                          the 1 Hz host half).
 
 ``csrc/front.cu`` evaluates ``fast_atan2`` with the same operations in the
-same order, so the kernel and this plain version agree bit for bit.
+same order, so the kernel and this plain version agree bit for bit;
+``csrc/nco.cuh`` takes the NCO ramp in ``nco_mix_pair_tm``'s order, and
+the two differ only in the last ulp of cos and sin.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ _TAN_MAP_RES = float(np.float32(0.003921569))  # smallest non-zero table value
 _TINY = float(np.float32(1e-45))
 
 
-def atan_table(device=None) -> torch.Tensor:
+def atan_table(device) -> torch.Tensor:
     """The 257-entry reference arctangent table as a float32 tensor."""
     return torch.from_numpy(taps_mod.atan_table().copy()).to(device)
 
@@ -93,3 +99,45 @@ def dc_blocker_taps(length: int) -> np.ndarray:
     taps = -k
     taps[2 * (length - 1)] += 1.0
     return taps.astype(np.float32)
+
+
+def nco_steps(adjs: torch.Tensor) -> torch.Tensor:
+    """Per-row coarse phase step of the two-level NCO ramp:
+    float32(mod(float64(adj) * 4096, 2 pi)), taken in float64 once per
+    call (``sdrmodem_tpu/dsp/elementwise.py:378``,
+    ``ops/pallas_front.py:337-339``).  The kernel reads this table too."""
+    return torch.remainder(adjs.double() * 4096.0, 2 * np.pi).float()
+
+
+def nco_mix_pair_tm(
+    x_tm: torch.Tensor,  # (B, 2C) f32 time-major, I lanes [0, C), Q [C, 2C)
+    starts: torch.Tensor,  # (S, C) f32: row s is active from starts[s]
+    ends: torch.Tensor,  # (S, C) f32: ... to ends[s] (exclusive)
+    adjs: torch.Tensor,  # (S, C) f32: phase increment a sample
+    ph0s: torch.Tensor,  # (S, C) f32: phase at the row's first sample
+) -> torch.Tensor:
+    """Per-lane piecewise-linear-phase NCO multiply, float32.
+
+    Sample n of lane c gets phase ph0 + (n - start) * adj of the row whose
+    [start, end) holds n, summed over rows; a lane with no active row gets
+    phase 0, an exact identity multiply (i*1 - q*0 = i), so Doppler-free
+    lanes pass through bit for bit.  The ramp is two-level, d = k*4096 + m,
+    with the k term's step from ``nco_steps``.  Each operation is one torch
+    op on float32, in the order of ``csrc/nco.cuh`` (which takes each with
+    a round-to-nearest intrinsic), so no multiply and add are contracted."""
+    b, c2 = x_tm.shape
+    c = c2 // 2
+    steps = nco_steps(adjs)
+    nrow = torch.arange(b, dtype=torch.float32, device=x_tm.device)[:, None]
+    ph = torch.zeros((b, c), dtype=torch.float32, device=x_tm.device)
+    for s in range(starts.shape[0]):
+        st, en = starts[s], ends[s]
+        active = (nrow >= st) & (nrow < en)
+        dd = nrow - st
+        kq = torch.floor(dd * (1.0 / 4096.0))
+        mq = dd - kq * 4096.0
+        ramp = (ph0s[s] + mq * adjs[s]) + kq * steps[s]
+        ph = ph + torch.where(active, ramp, 0.0)
+    cs, sn = torch.cos(ph), torch.sin(ph)
+    i, q = x_tm[:, :c], x_tm[:, c:]
+    return torch.cat([i * cs - q * sn, i * sn + q * cs], dim=1)

@@ -1,11 +1,12 @@
 """The batched full-block demodulator step.
 
-Counterpart of ``sdrmodem_tpu/dsp/pipeline.py:58-72, 365-381, 569-676``
-(``DemodStateFull``, ``init_full_state`` and ``make_batched_step_full``),
-without the Doppler stage: every channel advances by exactly ``block``
-samples a step, through the front-end kernel (``ops/front.py``) and the
-clock kernel (``ops/clock.py``), and every FIR tail, the one-row quad-demod
-carry and the clock's {omega, mu, last, suffix, resid} carry over in
+Counterpart of ``sdrmodem_tpu/dsp/pipeline.py:58-72, 365-381, 383-474,
+569-676`` (``DemodStateFull``, ``init_full_state``, the two fronts and
+``make_batched_step_full``): every channel advances by exactly ``block``
+samples a step, through an optional per-lane Doppler NCO mix, the front
+end (``ops/front.py``: fused, or banded on B3) and the clock kernel
+(``ops/clock.py``), and every FIR tail, the one-row quad-demod carry and
+the clock's {omega, mu, last, suffix, resid} carry over in
 ``DemodStateFull``.
 
 The state is time-major with channels along the last axis, unpadded: the
@@ -29,9 +30,24 @@ from sdrmodem_tpu_torch.dsp.clock_recovery import (
 )
 from sdrmodem_tpu_torch.dsp.elementwise import atan_table, dc_blocker_taps
 from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig, float_to_int8
-from sdrmodem_tpu_torch.ops.front import FrontTaps, fused_front
+from sdrmodem_tpu_torch.ops.front import FrontTaps, banded_front, fused_front
 
 LAYOUTS = ("cm", "tm", "fanout")
+FRONTS = {"fused": fused_front, "banded": banded_front}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the current CUDA device when it is None.  Raises when
+    a CUDA device is asked for and there is none: nothing falls back to the
+    CPU unless the caller passes ``device="cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"no CUDA device for {dev}; pass device='cpu' for the plain versions")
+        if dev.index is None:
+            # tensors report "cuda:N", so name the card the way they do
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 class DemodStateFull(NamedTuple):
@@ -53,11 +69,7 @@ class DemodPipeline:
     def __init__(self, config: FskDemodConfig, block_size: int, *, device=None):
         self.config = config
         self.block = int(block_size)
-        dev = torch.device("cuda" if device is None else device)
-        if dev.type == "cuda" and dev.index is None:
-            # tensors report "cuda:N", so name the card the way they do
-            dev = torch.device("cuda", torch.cuda.current_device())
-        self.device = dev
+        self.device = resolve_device(device)
         self._t1 = np.asarray(config.lpf1_taps(), np.float32)
         self._t2 = np.asarray(config.lpf2_taps(), np.float32)
         self._tdc = (
@@ -118,31 +130,72 @@ class DemodPipeline:
             )
         return x.contiguous()
 
-    def make_batched_step_full(self, layout: str = "cm"):
+    def make_batched_step_full(
+        self, clock_backend: str = "pallas", *, doppler: bool = False, layout: str = "cm",
+        front: str = "fused",
+    ):
         """Batched full-block step: (state, x) -> (state', symbols int8
-        (C, n_chunks, K), counts int32 (C, n_chunks)).
+        (C, n_chunks, K), counts int32 (C, n_chunks)); with ``doppler=True``
+        (state, x, dop) -> the same.  The JAX signature, so the server's
+        ``make_batched_step_full("pallas", doppler=True, layout="fanout")``
+        (``sdrmodem_tpu/server/session.py:388-390``) runs as written.
+
+        ``clock_backend`` is "pallas", the clock kernel (B2); the JAX
+        package's "scan" clock is not ported.
 
         ``layout`` picks the input convention (C = the state's channels):
           - "cm"     x is (C, 2, B), channel-major;
           - "tm"     x is (B, 2C), time-major, I in lanes [0, C) and Q in
                      [C, 2C): the kernels' own layout, no re-layout;
           - "fanout" x is (2, B): one shared IQ stream broadcast to every
-                     lane (the reference's sdr_worker fan-out).
+                     lane (the reference's sdr_worker fan-out); per-lane
+                     Doppler still sets the lanes apart.
+
+        ``front`` is "fused" (``ops/front.py:fused_front``, B1 from one C
+        call) or "banded" (``banded_front``: the same kernels one at a
+        time, its FIRs through B3); the two give the same bits.  It is an
+        argument, and no environment variable is read.  The JAX package
+        falls back to "banded" by itself when a block has no legal TPU tile;
+        the port's fused front takes any block with ``block % d == 0``, so
+        it never falls back.  "step", the fused front+clock kernel (B7,
+        ``sdrmodem_tpu/ops/pallas_step.py``), is not ported yet.
+
+        With ``doppler=True`` the step takes ``dop = (starts, ends, adjs,
+        ph0s)``, each an (S, C) float32 tensor on the pipeline's device with
+        S >= 1 (rows of ``Doppler.device_segments``), and mixes each lane by
+        its rows before LPF1.  Lanes with no active row pass through bit
+        for bit.
         """
+        if clock_backend == "scan":
+            raise NotImplementedError(
+                "clock_backend='scan' (the JAX package's lax.scan clock) is not ported; "
+                "the port's clock is the B2 kernel, clock_backend='pallas'"
+            )
+        if clock_backend != "pallas":
+            raise ValueError(f"unknown clock_backend {clock_backend!r}")
+        if front == "step":
+            raise NotImplementedError(
+                "front='step' is the fused front+clock kernel B7 "
+                "(sdrmodem_tpu/ops/pallas_step.py), which is not ported yet"
+            )
+        if front not in FRONTS:
+            raise ValueError(f"unknown front {front!r}")
         if layout not in LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}")
         p = self._clockp
+        front_fn = FRONTS[front]
 
-        def step(state: DemodStateFull, x: torch.Tensor):
+        def step(state: DemodStateFull, x: torch.Tensor, dop=None):
             c = state.quad_prev.shape[1] // 2
             x_tm = self.to_time_major(x, c, layout)
-            y3, front = fused_front(
+            y3, fstate = front_fn(
                 x_tm,
                 state.lpf1_hist,
                 state.quad_prev,
                 state.lpf2_hist,
                 state.dc_hist,
                 self.front_taps,
+                dop,
             )
             outs, counts, clock = clock_mm_batched_full(
                 y3,
@@ -154,6 +207,8 @@ class DemodPipeline:
                 gain_mu=p["gain_mu"],
                 omega_relative_limit=p["omega_relative_limit"],
             )
-            return DemodStateFull(*front, clock), float_to_int8(outs), counts
+            return DemodStateFull(*fstate, clock), float_to_int8(outs), counts
 
-        return step
+        if doppler:
+            return step
+        return lambda state, x: step(state, x)

@@ -1,11 +1,12 @@
 """Build the CUDA sources under ``csrc/`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<flags>.so`` at the
-root of the checkout, on first use or when the source is newer than the
-library.  ``<flags>`` is a hash of the source's compiler flags, so a
-change of flags (the clock's ``-fmad=false``, say) builds a new library.
-No PyTorch headers are included, so a build takes seconds.  Every C entry
+``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at the
+root of the checkout, on first use.  ``<hash>`` covers the source's
+compiler flags, its text and the text of every shared header
+``csrc/*.cuh``, so a change of any of them (the clock's ``-fmad=false``,
+the FIR kernel in ``fir.cuh``) names a new library and a stale one is
+never loaded.  No PyTorch headers are included, so a build takes seconds.  Every C entry
 point returns the ``cudaGetLastError()`` value after its launches, and
 ``check`` raises on anything but 0.
 """
@@ -49,42 +50,41 @@ def _flags(name: str) -> list[str]:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1(" ".join(_flags(name)).encode()).hexdigest()[:10]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
-
-
-def _stale(name: str) -> bool:
-    lib = library_path(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    h = hashlib.sha1(" ".join(_flags(name)).encode())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: list[str] | None = None) -> dict[str, str]:
-    """Compile every stale source, one ``nvcc`` per source, all started
-    together.  Returns each compiled source's compiler output (register
+    """Compile every source whose library is missing, one ``nvcc`` per
+    source, all started together.  Returns each compiled source's compiler output (register
     and shared-memory use from ``-Xptxas -v``); raises if any build fails."""
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    todo = [n for n in names if _stale(n)]
+    todo = {n: library_path(n) for n in names}
+    todo = {n: lib for n, lib in todo.items() if not lib.exists()}
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    for name in todo:
+    for name, lib in todo.items():
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so.tmp"
         cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,
+            lib,
         )
     logs, failed = {}, []
-    for name, (proc, tmp) in procs.items():
+    for name, (proc, tmp, lib) in procs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
             failed.append(name)
         else:
-            os.replace(tmp, library_path(name))
+            os.replace(tmp, lib)
     if failed:
         raise RuntimeError(
             "nvcc failed for "
@@ -96,7 +96,7 @@ def build(names: list[str] | None = None) -> dict[str, str]:
 
 
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if stale.
+    """The loaded library for ``csrc/<name>.cu``, built first if missing.
 
     ``signatures`` maps each C function to its ``argtypes``: pointers and
     the stream are ``c_void_p``, so ctypes never cuts them to 32 bits."""
@@ -111,6 +111,14 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
         lib.cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
+
+
+def device_kind(x, what: str) -> str:
+    """"cpu" (run the plain version) or "cuda" (launch the kernel) for the
+    tensor ``x``; raise for any other device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    return x.device.type
 
 
 def check_arg(kernel: str, name: str, t, shape, dtype, device) -> None:

@@ -1,20 +1,31 @@
-"""The demodulator front end: the CUDA kernel's wrapper and its plain version.
+"""The demodulator front end: the CUDA kernels' wrappers and their plain versions.
 
-Counterpart of ``sdrmodem_tpu/ops/pallas_front.py:fused_front_call``
-without its Doppler stage: LPF1 (complex, d=1) -> quadrature demod
-(x * conj(x[-1]) -> LUT atan -> * gain) -> LPF2 (stride d) -> DC blocker
-(one causal (4L-3)-tap FIR), carrying every tail between blocks.
+Counterpart of ``sdrmodem_tpu/ops/pallas_front.py:fused_front_call`` (B1)
+and of the banded front it falls back to
+(``sdrmodem_tpu/dsp/pipeline.py:_front_batched_full``, built on B3):
+optional per-lane Doppler NCO mix -> LPF1 (complex, d=1) -> quadrature
+demod (x * conj(x[-1]) -> LUT atan -> * gain) -> LPF2 (stride d) -> DC
+blocker (one causal (4L-3)-tap FIR), carrying every tail between blocks.
 
 Time-major throughout: x is (B, 2C) with I in lanes [0, C) and Q in
-[C, 2C); y3 is (B/d, C).  ``fused_front`` launches ``csrc/front.cu`` for
-a CUDA tensor and runs ``fused_front_plain`` for a CPU tensor.
+[C, 2C); y3 is (B/d, C).  ``dop`` is the (starts, ends, adjs, ph0s)
+tuple of (S, C) float32 tables from ``Doppler.device_segments``; with it
+LPF1 reads the mixed block, and lpf1_hist' is the mixed block's tail.
 
-The plain version takes every FIR as the kernel does: one fused
-multiply-add a tap, in tap order, so the CPU and the card give the same
-y3.  The lucky7_nodc fixture has a stretch (symbols ~6300-6400) where the
-clock's lock turns on the last ulp of y3 (tests/test_torch_clock.py,
-``test_nodc_clocks_agree_on_either_front``); on the kernel's sums the port
-holds the reference's ±2 LSB there.
+- ``fused_front`` launches ``csrc/front.cu``'s stages from one C call;
+- ``banded_front`` launches the same NCO and quad-demod kernels one at a
+  time (``nco_mix``, ``quad_demod``) and its FIRs through B3
+  (``ops/fir.py:conv1d_banded_tm``) over [history | block].
+
+The two run the same device code in the same order, so on the card they
+give the same bits, as the JAX package's fused and banded fronts do.  For
+a CPU tensor each wrapper runs its plain version.
+
+The plain FIRs sum as the kernel does (``ops/fir.py``), so the CPU and the
+card give the same y3.  The lucky7_nodc fixture has a stretch (symbols
+~6300-6400) where the clock's lock turns on the last ulp of y3
+(tests/test_torch_clock.py, ``test_nodc_clocks_agree_on_either_front``);
+on the kernel's sums the port holds the reference's ±2 LSB there.
 """
 
 from __future__ import annotations
@@ -24,10 +35,15 @@ from typing import NamedTuple
 
 import torch
 
-from sdrmodem_tpu_torch.dsp.elementwise import fast_atan2
+from sdrmodem_tpu_torch.dsp.elementwise import fast_atan2, nco_mix_pair_tm, nco_steps
 from sdrmodem_tpu_torch.ops import _build
+from sdrmodem_tpu_torch.ops.fir import conv1d_banded_tm, conv1d_banded_tm_plain
 
-launches = 0  # kernels launched by fused_front; a run resets and reads it
+launches = 0  # kernels launched by this module's wrappers; a run resets and reads it
+
+# the NCO compares the row index in float32, exact below 2^24 (as the TPU
+# kernel does, pallas_front.py:189-191)
+MAX_DOPPLER_BLOCK = 1 << 24
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,13 +51,22 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "front_forward": [
         _P, _I, _I,  # x, block, lanes
+        _P, _I, _P,  # doppler table (5, S, C) or null, S, mixed-block scratch
         _P, _P, _I,  # lpf1 hist, taps, t1
         _P, _F, _P,  # quad_prev, quad_gain, atan_table
         _P, _P, _I, _I,  # lpf2 hist, taps, t2, decim
         _P, _P, _I,  # dc hist, taps, t3 (0 = no DC stage)
         _P, _P, _P, _P,  # y1, yq, y2, y3
         _P, _P,  # stream, kernels launched (int out)
-    ]
+    ],
+    "quad_demod_forward": [
+        _P, _P, _I, _I,  # y1, prev, rows, lanes
+        _P, _F, _P, _P,  # atan_table, quad_gain, yq, stream
+    ],
+    "nco_mix_forward": [
+        _P, _I, _I,  # x, rows, lanes
+        _P, _I, _P, _P,  # doppler table (5, S, C), S, y, stream
+    ],
 }
 
 
@@ -64,58 +89,150 @@ def _tail(hist: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.cat([hist, x], dim=0)[x.shape[0] :]
 
 
-def _fir_plain(hist, x, rev, d, n_out):
-    """y[k] = sum_j rev[j] * [hist | x][k*d + j], per lane, as the kernel
-    sums it: acc = fmaf(rev[j], ., acc) for j = 0, 1, ...  Each step is
-    taken in float64, where the product of two float32 is exact, and
-    rounded once to float32, which is fmaf's result barring a tie of the
-    double rounding."""
-    work = torch.cat([hist, x], dim=0).double()
-    span = (n_out - 1) * d + 1
-    acc = torch.zeros((n_out, x.shape[1]), dtype=torch.float32, device=x.device)
-    for j, tap in enumerate(rev.double().tolist()):
-        acc = torch.add(acc, work[j : j + span : d], alpha=tap).float()
-    return acc
+def check_dop(dop, block: int, channels: int, device) -> None:
+    """Raise unless ``dop`` is four (S, C) float32 tables on ``device``
+    with S >= 1, for a block short enough for the float32 row index."""
+    if len(dop) != 4:
+        raise ValueError(f"dop must be (starts, ends, adjs, ph0s), got {len(dop)} tables")
+    s_rows = dop[0].shape[0] if dop[0].dim() == 2 else 0
+    for name, t in zip(("starts", "ends", "adjs", "ph0s"), dop):
+        if t.dim() != 2 or t.shape[0] != s_rows or s_rows < 1:
+            raise ValueError(f"dop {name}: want (S >= 1, {channels}), got {tuple(t.shape)}")
+        _build.check_arg("doppler", name, t, (s_rows, channels), torch.float32, device)
+    if block >= MAX_DOPPLER_BLOCK:
+        raise ValueError(f"doppler: block {block} must be < 2^24 (float32 row index)")
 
 
-def fused_front_plain(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps: FrontTaps):
-    """Plain PyTorch front end.  Returns (y3, (lpf1_hist', quad_prev',
-    lpf2_hist', dc_hist')) like the JAX ``fused_front_call``."""
+def _dop_table(dop) -> torch.Tensor:
+    """(5, S, C) contiguous: starts, ends, adjs, ph0s and the coarse steps."""
+    return torch.stack([*dop, nco_steps(dop[2])]).contiguous()
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# ---- the Doppler NCO stage alone (the banded front's stage 0)
+
+
+def nco_mix_plain(x: torch.Tensor, dop) -> torch.Tensor:
+    """``dsp/elementwise.py:nco_mix_pair_tm`` on checked tables."""
+    check_dop(dop, x.shape[0], x.shape[1] // 2, x.device)
+    return nco_mix_pair_tm(x, *dop)
+
+
+def nco_mix(x: torch.Tensor, dop) -> torch.Tensor:
+    """x (B, 2C) mixed by the Doppler tables: ``csrc/nco.cuh`` for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    global launches
+    if _build.device_kind(x, "nco_mix") == "cpu":
+        return nco_mix_plain(x, dop)
     b, c2 = x.shape
-    c = c2 // 2
-    y1 = _fir_plain(lpf1_hist, x, taps.rev1, 1, b)
+    check_dop(dop, b, c2 // 2, x.device)
+    _build.check_arg("nco", "x", x, (b, c2), torch.float32, x.device)
+    tab = _dop_table(dop)
+    y = torch.empty_like(x)
+    lib = _build.load("front", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        rc = lib.nco_mix_forward(
+            x.data_ptr(), b, c2 // 2, tab.data_ptr(), tab.shape[1], y.data_ptr(), _stream(x.device)
+        )
+    _build.check(lib, rc, "nco_mix_forward")
+    launches += 1
+    return y
+
+
+# ---- the quadrature demod stage alone
+
+
+def quad_demod_plain(y1, quad_prev, taps: FrontTaps):
+    """yq (B, C) = gain * atan2 of y1 * conj(y1[-1]), y1[-1] = quad_prev."""
+    c = y1.shape[1] // 2
     shifted = torch.cat([quad_prev, y1[:-1]], dim=0)
     i, q = y1[:, :c], y1[:, c:]
     si, sq = shifted[:, :c], shifted[:, c:]
     re = i * si + q * sq
     im = q * si - i * sq
-    yq = taps.quad_gain * fast_atan2(im, re, taps.atan_table)
+    return taps.quad_gain * fast_atan2(im, re, taps.atan_table)
+
+
+def quad_demod(y1, quad_prev, taps: FrontTaps):
+    """The quad-demod stage: front.cu's kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    global launches
+    if _build.device_kind(y1, "quad_demod") == "cpu":
+        return quad_demod_plain(y1, quad_prev, taps)
+    b, c2 = y1.shape
+    dev = y1.device
+    _check("y1", y1, (b, c2), dev)
+    _check("quad_prev", quad_prev, (1, c2), dev)
+    _check("atan_table", taps.atan_table, (257,), dev)
+    yq = torch.empty((b, c2 // 2), dtype=torch.float32, device=dev)
+    lib = _build.load("front", _SIGNATURES)
+    with torch.cuda.device(dev):
+        rc = lib.quad_demod_forward(
+            y1.data_ptr(), quad_prev.data_ptr(), b, c2 // 2, taps.atan_table.data_ptr(),
+            taps.quad_gain, yq.data_ptr(), _stream(dev),
+        )
+    _build.check(lib, rc, "quad_demod_forward")
+    launches += 1
+    return yq
+
+
+# ---- the whole front
+
+
+def _front_stages(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps, dop, *, mix, fir, quad):
+    """The front end stage by stage, each stage one of the given functions."""
+    b = x.shape[0]
+    if dop is not None:
+        x = mix(x, dop)
+    y1 = fir(torch.cat([lpf1_hist, x]), taps.rev1, 1, b)
+    yq = quad(y1, quad_prev, taps)
     n2 = b // taps.d
-    y2 = _fir_plain(lpf2_hist, yq, taps.rev2, taps.d, n2)
+    y2 = fir(torch.cat([lpf2_hist, yq]), taps.rev2, taps.d, n2)
     if taps.rev_dc is None:
         y3, dc_new = y2, dc_hist
     else:
-        y3 = _fir_plain(dc_hist, y2, taps.rev_dc, 1, n2)
+        y3 = fir(torch.cat([dc_hist, y2]), taps.rev_dc, 1, n2)
         dc_new = _tail(dc_hist, y2)
-    front = (_tail(lpf1_hist, x), y1[b - 1 :].clone(), _tail(lpf2_hist, yq), dc_new)
-    return y3, front
+    return y3, (_tail(lpf1_hist, x), y1[b - 1 :].clone(), _tail(lpf2_hist, yq), dc_new)
 
 
-def fused_front(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps: FrontTaps):
-    """The front end over one full block: the CUDA kernel for a CUDA tensor,
+def fused_front_plain(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps: FrontTaps, dop=None):
+    """Plain PyTorch front end.  Returns (y3, (lpf1_hist', quad_prev',
+    lpf2_hist', dc_hist')) like the JAX ``fused_front_call``."""
+    return _front_stages(
+        x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps, dop,
+        mix=nco_mix_plain, fir=conv1d_banded_tm_plain, quad=quad_demod_plain,
+    )
+
+
+def fused_front(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps: FrontTaps, dop=None):
+    """The front end over one full block: the CUDA kernels for a CUDA tensor,
     the plain version for a CPU tensor.  Arguments as ``fused_front_plain``."""
-    if x.device.type == "cpu":
-        return fused_front_plain(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_front: unsupported device {x.device}")
-    return _front_cuda(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps)
+    if _build.device_kind(x, "fused_front") == "cpu":
+        return fused_front_plain(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps, dop)
+    return _front_cuda(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps, dop)
+
+
+def banded_front(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps: FrontTaps, dop=None):
+    """The same front end stage by stage: the NCO and quad-demod kernels
+    alone and B3 over each [history | block] (``pipeline.py:383-452``, with
+    the NCO mix ahead of it as ``pipeline.py:657-662`` puts it).  Arguments
+    and results as ``fused_front``; on a CPU tensor every stage runs its
+    plain version, so it is ``fused_front_plain``."""
+    return _front_stages(
+        x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps, dop,
+        mix=nco_mix, fir=conv1d_banded_tm, quad=quad_demod,
+    )
 
 
 def _check(name, t, shape, device):
     _build.check_arg("front", name, t, shape, torch.float32, device)
 
 
-def _front_cuda(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps):
+def _front_cuda(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps, dop):
     global launches
     b, c2 = x.shape
     c = c2 // 2
@@ -135,6 +252,11 @@ def _front_cuda(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps):
     if t3:
         _check("dc_hist", dc_hist, (t3 - 1, c), dev)
         _check("rev_dc", taps.rev_dc, (t3,), dev)
+    tab = xm = None
+    if dop is not None:
+        check_dop(dop, b, c, dev)
+        tab = _dop_table(dop)
+        xm = torch.empty_like(x)
     n2 = b // d
     y1 = torch.empty((b, c2), dtype=torch.float32, device=dev)
     yq = torch.empty((b, c), dtype=torch.float32, device=dev)
@@ -143,20 +265,21 @@ def _front_cuda(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps):
     lib = _build.load("front", _SIGNATURES)
     started = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.front_forward(
             x.data_ptr(), b, c,
+            tab.data_ptr() if tab is not None else None, tab.shape[1] if tab is not None else 0,
+            xm.data_ptr() if xm is not None else None,
             lpf1_hist.data_ptr(), taps.rev1.data_ptr(), t1,
             quad_prev.data_ptr(), taps.quad_gain, taps.atan_table.data_ptr(),
             lpf2_hist.data_ptr(), taps.rev2.data_ptr(), t2, d,
             dc_hist.data_ptr() if t3 else None, taps.rev_dc.data_ptr() if t3 else None, t3,
             y1.data_ptr(), yq.data_ptr(), y2.data_ptr() if t3 else None, y3.data_ptr(),
-            stream, ctypes.addressof(started),
+            _stream(dev), ctypes.addressof(started),
         )
     launches += started.value
     _build.check(lib, rc, "front_forward")
     front = (
-        _tail(lpf1_hist, x),
+        _tail(lpf1_hist, x if xm is None else xm),
         y1[b - 1 :].clone(),
         _tail(lpf2_hist, yq),
         _tail(dc_hist, y2) if t3 else dc_hist,

@@ -1,9 +1,11 @@
 """Carry a full-block demodulator state between the JAX package and the port.
 
-The JAX ``DemodStateFull`` pads its lanes to a multiple of 128 (I lanes in
-[0, Cp), Q lanes in [Cp, 2Cp)); the port keeps exactly C lanes.  Both
-functions take and give the state as numpy arrays in the JAX layout, so
-neither side needs the other's framework.
+The JAX ``DemodStateFull`` and Doppler tables pad their lanes to a
+multiple of 128 (I lanes in [0, Cp), Q lanes in [Cp, 2Cp)); the port keeps
+exactly C lanes.  These functions take and give numpy arrays in the JAX
+layout, so neither side needs the other's framework.  Like the pipeline,
+they put tensors on the CUDA device unless given ``device="cpu"``, and
+raise where there is no card.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from sdrmodem_tpu_torch.dsp.clock_recovery import ClockFullState
-from sdrmodem_tpu_torch.dsp.pipeline import DemodStateFull
+from sdrmodem_tpu_torch.dsp.pipeline import DemodStateFull, resolve_device
 
 LANES = 128  # the JAX package's lane multiple
 
@@ -44,8 +46,9 @@ def _iq_lanes(a: np.ndarray, channels: int) -> np.ndarray:
 
 def full_state_from_numpy(state, channels: int, device=None) -> DemodStateFull:
     """A JAX ``DemodStateFull`` (numpy leaves, lanes padded) as the port's
-    state for its first ``channels`` lanes."""
+    state for its first ``channels`` lanes, on ``device`` (default CUDA)."""
     c = int(channels)
+    device = resolve_device(device)
 
     def t(a, dtype=torch.float32):
         return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
@@ -64,6 +67,35 @@ def full_state_from_numpy(state, channels: int, device=None) -> DemodStateFull:
             resid=t(np.asarray(ck.resid)[:c], torch.int32),
             overflow=t(np.asarray(ck.overflow)[:c]),
         ),
+    )
+
+
+def segment_tables(rows_by_lane: dict, s_rows: int, lanes: int):
+    """The server's Doppler tables (``sdrmodem_tpu/server/session.py:522-536``):
+    (starts, ends, adjs, ph0s), each (s_rows, lanes) float32 numpy, from
+    ``Doppler.device_segments`` rows per lane; lanes without rows stay zero
+    (no active row)."""
+    tables = [np.zeros((s_rows, lanes), np.float32) for _ in range(4)]
+    for lane, rows in rows_by_lane.items():
+        if len(rows) > s_rows:
+            raise ValueError(f"lane {lane}: {len(rows)} Doppler rows > {s_rows}")
+        for k, (st, ln, adj, ph0) in enumerate(rows):
+            tables[0][k, lane] = st
+            tables[1][k, lane] = st + ln
+            tables[2][k, lane] = adj
+            tables[3][k, lane] = ph0
+    return tuple(tables)
+
+
+def doppler_tables_from_numpy(tables, channels: int, device=None):
+    """JAX-layout Doppler tables ((starts, ends, adjs, ph0s), each (S, Cp)
+    with lanes padded) as the port's ``dop``: four contiguous (S, C)
+    float32 tensors on ``device`` (default CUDA)."""
+    device = resolve_device(device)
+    c = int(channels)
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(np.asarray(t, np.float32)[:, :c])).to(device)
+        for t in tables
     )
 
 

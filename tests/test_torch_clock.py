@@ -70,7 +70,7 @@ def _run_both(cfg_args, y3_blocks):
     p = JaxConfig(*cfg_args).clock_params()
     c = y3_blocks[0].shape[1]
     jstate = jax_initial(p["omega"], c, p["mu"])
-    state = initial_full_state(p["omega"], c, p["mu"])
+    state = initial_full_state(p["omega"], c, p["mu"], device="cpu")
     for y3 in y3_blocks:
         jouts, jcounts, jstate = jax_clock(jnp.asarray(y3), jstate, backend="scan", **p)
         outs, counts, state = clock_mm_batched_full(torch.tensor(y3), state, bank=BANK, **p)
@@ -186,7 +186,7 @@ def test_clock_chunk_size_invariant(monkeypatch, small_chunk):
     results = []
     for chunk in ("2048", small_chunk):
         monkeypatch.setenv("SDRM_CLOCK_CHUNK", chunk)
-        state = initial_full_state(p["omega"], 3, p["mu"])
+        state = initial_full_state(p["omega"], 3, p["mu"], device="cpu")
         syms = []
         for half in (y3[:2250], y3[2250:]):
             outs, counts, state = clock_mm_batched_full(half, state, bank=BANK, **p)

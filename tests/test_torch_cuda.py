@@ -7,9 +7,13 @@ Small sizes; ``chip_smoke.py`` repeats the comparison at the main path's.
 Tolerances: the front's y3 and FIR tails within 1e-4 (both sum each FIR
 in tap order with one rounding a tap, the plain version through float64,
 which can round a tie twice); lpf1_hist (a copy of the input) and
-quad_prev (the last LPF1 row) exact.  The clock, fed the same y3, is
-exact: both sum the interpolator in tap order and neither contracts a
-multiply and an add.
+quad_prev (the last LPF1 row) exact.  With Doppler the mixed block's cos
+and sin come from two libraries (the kernel's cosf/sinf, torch's on the
+plain side), an ulp apart: the mixed tail within 2e-6 and quad_prev within
+1e-6.  The FIR kernel alone (B3, B8) within 1e-5 of its plain version.
+The clock, fed the same y3, is exact: both sum the interpolator in tap
+order and neither contracts a multiply and an add.  The fused and banded
+fronts run the same kernels in the same order: bit for bit.
 """
 
 import numpy as np
@@ -17,11 +21,21 @@ import pytest
 import torch
 
 from sdrmodem_tpu_torch.dsp.clock_recovery import chunk_plan, clock_mm_batched_full
+from sdrmodem_tpu_torch.dsp.doppler import Doppler
 from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
 from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline, DemodStateFull
 from sdrmodem_tpu_torch.ops import clock as clock_ops
+from sdrmodem_tpu_torch.ops import fir as fir_ops
 from sdrmodem_tpu_torch.ops import front as front_ops
+from sdrmodem_tpu_torch.utils.convert import doppler_tables_from_numpy, segment_tables
 
+TLE = [
+    "LUCKY-7",
+    "1 44406U 19038W   20069.88080907  .00000505  00000-0  32890-4 0  9992",
+    "2 44406  97.5270  32.5584 0026284 107.4758 252.9348 15.12089395 37524",
+]
+DOPPLER = dict(latitude=53.72, longitude=47.57, altitude_km=0.0, sampling_freq=48000,
+               center_freq=437525000, tle_lines=TLE, start_time_seconds=1583840449)
 CONFIGS = {
     "lucky7": (48000, 4800, 5000, 2, 2000, True),
     "lucky7_nodc": (48000, 4800, 5000, 2, 2000, False),
@@ -76,3 +90,98 @@ def test_kernels_match_plain(cuda, name):
         assert c_k.sum() > 0
         st_k = DemodStateFull(*f_k, ck_k)
         st_p = DemodStateFull(*f_p, ck_k)
+
+
+def _dop_blocks(block, blocks, c, lanes_with_rows, device):
+    """Per block, Doppler tables on ``device`` with rows on the given lanes."""
+    dops = {k: Doppler(**DOPPLER, constant_offset=700 * k) for k in lanes_with_rows}
+    s_rows = Doppler.max_rows(block, 48000)
+    out = []
+    for _ in range(blocks):
+        rows = {k: d.device_segments(block, +1) for k, d in dops.items()}
+        out.append(doppler_tables_from_numpy(segment_tables(rows, s_rows, c), c, device=device))
+    return out
+
+
+@pytest.mark.cuda
+def test_doppler_front_matches_plain(cuda):
+    c, block = 5, 8192
+    pipe = DemodPipeline(FskDemodConfig(*CONFIGS["lucky7"]), block, device=cuda)
+    st_k = st_p = pipe.init_full_state(c)
+    rng = np.random.default_rng(1)
+    for dop in _dop_blocks(block, 3, c, [0, 1, 2], cuda):
+        x = torch.from_numpy(rng.standard_normal((block, 2 * c)).astype(np.float32)).to(cuda)
+        n0 = front_ops.launches
+        y3_k, f_k = front_ops.fused_front(x, *st_k[:4], pipe.front_taps, dop)
+        assert front_ops.launches == n0 + 5  # NCO, LPF1, quad demod, LPF2, DC
+        y3_p, f_p = front_ops.fused_front_plain(x, *st_p[:4], pipe.front_taps, dop)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y3_k, y3_p, rtol=0, atol=1e-4)
+        torch.testing.assert_close(f_k[0], f_p[0], rtol=0, atol=2e-6)
+        torch.testing.assert_close(f_k[1], f_p[1], rtol=0, atol=1e-6)
+        for a, b in zip(f_k[2:], f_p[2:]):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+        # lanes 3 and 4 have no rows: their tails are the raw input's
+        tail = x[-f_k[0].shape[0] :]
+        cols = [3, 4, c + 3, c + 4]
+        assert torch.equal(f_k[0][:, cols], tail[:, cols])
+        st_k = st_k._replace(lpf1_hist=f_k[0], quad_prev=f_k[1], lpf2_hist=f_k[2], dc_hist=f_k[3])
+        st_p = st_p._replace(lpf1_hist=f_p[0], quad_prev=f_p[1], lpf2_hist=f_p[2], dc_hist=f_p[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lucky7", "lucky7_nodc"])
+@pytest.mark.parametrize("with_dop", [False, True])
+def test_fused_and_banded_fronts_bit_equal(cuda, name, with_dop):
+    c, block = 6, 4096
+    pipe = DemodPipeline(FskDemodConfig(*CONFIGS[name]), block, device=cuda)
+    st_f = st_b = pipe.init_full_state(c)
+    rng = np.random.default_rng(2)
+    dops = _dop_blocks(block, 2, c, [0, 2, 5], cuda) if with_dop else [None, None]
+    for dop in dops:
+        x = torch.from_numpy(rng.standard_normal((block, 2 * c)).astype(np.float32)).to(cuda)
+        n0 = (front_ops.launches, fir_ops.launches)
+        y3_f, f_f = front_ops.fused_front(x, *st_f[:4], pipe.front_taps, dop)
+        y3_b, f_b = front_ops.banded_front(x, *st_b[:4], pipe.front_taps, dop)
+        # the FIRs are B3 launches in the banded front and front.cu's own in the
+        # fused one; the quad demod and the NCO are front.cu's in both
+        n_fir = 3 if CONFIGS[name][5] else 2
+        stages = 1 + (dop is not None)
+        assert front_ops.launches == n0[0] + (n_fir + stages) + stages
+        assert fir_ops.launches == n0[1] + n_fir
+        assert torch.equal(y3_f, y3_b)
+        for a, b in zip(f_f, f_b):
+            assert (a is None and b is None) or torch.equal(a, b)
+        st_f = st_f._replace(lpf1_hist=f_f[0], quad_prev=f_f[1], lpf2_hist=f_f[2], dc_hist=f_f[3])
+        st_b = st_b._replace(lpf1_hist=f_b[0], quad_prev=f_b[1], lpf2_hist=f_b[2], dc_hist=f_b[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,stride,col_offset", [(57, 2, 99), (157, 1, 0), (637, 1, 5), (637, 2, 0)])
+def test_fir_kernel_matches_plain(cuda, t, stride, col_offset):
+    rng = np.random.default_rng(t)
+    rev = torch.from_numpy(rng.standard_normal(t).astype(np.float32) / t).to(cuda)
+    n_out, lanes = 3000, 130
+    rows = (n_out - 1) * stride + col_offset + t - 17  # the last windows run off the end
+    x = torch.from_numpy(rng.standard_normal((rows, lanes)).astype(np.float32)).to(cuda)
+    n0 = fir_ops.launches
+    y = fir_ops.conv1d_banded_tm(x, rev, stride, n_out, col_offset=col_offset)
+    assert fir_ops.launches == n0 + 1
+    y_p = fir_ops.conv1d_banded_tm_plain(x, rev, stride, n_out, col_offset=col_offset)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_p, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decim", [1, 2, 4])
+def test_fir_tpu_kernel_matches_plain(cuda, decim):
+    rng = np.random.default_rng(decim)
+    taps = rng.standard_normal(101).astype(np.float32) / 101
+    x = torch.from_numpy(rng.standard_normal((5001, 64)).astype(np.float32)).to(cuda)
+    n0 = fir_ops.fir_tpu_launches
+    y = fir_ops.fir_tpu(x, taps, decim)
+    assert fir_ops.fir_tpu_launches == n0 + 1
+    y_p = fir_ops.fir_tpu_plain(x, taps, decim)
+    torch.cuda.synchronize()
+    assert y.shape == (-(-5001 // decim), 64)
+    torch.testing.assert_close(y, y_p, rtol=0, atol=1e-5)

@@ -1,5 +1,7 @@
 """The port's front end (ops/front.py, the module holding the B1 kernel)
-against the JAX fused front kernel (ops/pallas_front.py) in interpret mode.
+against the JAX fused front kernel (ops/pallas_front.py) in interpret mode,
+without and with its Doppler stage, and the port's two fronts (fused and
+banded on B3) against each other.
 
 Same numpy inputs, 4 lanes, block 4096, three blocks with carried state.
 The JAX FIRs run in their float32-exact mode (SDRM_FIR_PRECISION=highest):
@@ -15,6 +17,10 @@ Tolerances:
   tests/test_fused_front.py.  The JAX kernel's arctangent evaluates the
   table from a polynomial (≤ 2 ulp off the table), and near-zero
   conjugate products magnify the FIRs' ulp-level differences in angle.
+- With Doppler, lpf1_hist is the mixed block's tail: 2e-6, the NCO bound
+  of tests/test_torch_doppler.py (cos and sin an ulp apart).
+- The port's fused and banded fronts: bit for bit, with and without
+  Doppler (the same arithmetic in the same order).
 """
 
 import numpy as np
@@ -24,13 +30,20 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from sdrmodem_tpu.dsp.doppler import Doppler as JaxDoppler
+from sdrmodem_tpu.dsp.elementwise import nco_mix_pair_tm as jax_nco_mix
 from sdrmodem_tpu.dsp.fsk_demod import FskDemodConfig as JaxConfig
 from sdrmodem_tpu.dsp.pipeline import DemodPipeline as JaxPipeline
 from sdrmodem_tpu.dsp.pipeline import DemodStateFull as JaxState
 from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
 from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline, DemodStateFull
 from sdrmodem_tpu_torch.ops import front as front_ops
-from sdrmodem_tpu_torch.utils.convert import full_state_from_numpy
+from sdrmodem_tpu_torch.utils.convert import (
+    doppler_tables_from_numpy,
+    full_state_from_numpy,
+    segment_tables,
+)
+from tests.test_torch_doppler import ARGS
 
 CONFIGS = {
     "lucky7": (48000, 4800, 5000, 2, 2000, True),
@@ -67,7 +80,7 @@ def test_front_plain_matches_jax(name, monkeypatch):
         )
         state = DemodStateFull(*front, state.clock)
 
-        want = full_state_from_numpy(jax.tree.map(np.asarray, jstate), C)
+        want = full_state_from_numpy(jax.tree.map(np.asarray, jstate), C, device="cpu")
         assert y3.shape == (BLOCK // pipe.config.decimation, C)
         np.testing.assert_allclose(y3.numpy(), np.asarray(jy3)[:, :C], rtol=0, atol=1e-4)
         assert torch.equal(state.lpf1_hist, want.lpf1_hist)
@@ -90,3 +103,96 @@ def test_front_rejects_other_devices():
             x, state.lpf1_hist, state.quad_prev, state.lpf2_hist, state.dc_hist,
             pipe.front_taps,
         )
+
+
+def _doppler_rows(block, blocks, offsets):
+    """Per block, {lane: device_segments rows} for lanes with a pass of
+    their own (start time and constant offset per lane)."""
+    dops = {
+        lane: JaxDoppler(**{**ARGS, "start_time_seconds": ARGS["start_time_seconds"] + 30 * lane,
+                            "constant_offset": off})
+        for lane, off in offsets.items()
+    }
+    return [{lane: d.device_segments(block, +1) for lane, d in dops.items()} for _ in range(blocks)]
+
+
+def _raw_lanes(resources_dir, block, blocks, lanes):
+    """The raw lucky7 pass, lane k reading from k * 9000, as (B, 2C) blocks."""
+    iq = np.fromfile(resources_dir / "lucky7.cf32", np.complex64)
+    cols = np.stack([iq[k * 9000 : k * 9000 + block * blocks] for k in range(lanes)], axis=1)
+    return [
+        np.concatenate([cols[s : s + block].real, cols[s : s + block].imag], axis=1).astype(np.float32)
+        for s in range(0, block * blocks, block)
+    ]
+
+
+def test_front_doppler_matches_jax(resources_dir, monkeypatch):
+    """lucky7 raw pass, 4 lanes: rows on lanes 0-2, none on lane 3.
+
+    The reference for the mixed lanes is JAX's ``nco_mix_pair_tm`` ahead
+    of its fused front (the order of its banded route, pipeline.py:657-662).
+    JAX's in-kernel Doppler stage (``_front_fused_full(dop=...)``), run in
+    interpret mode on the CPU, has ``ph0 + m*adj`` contracted into a fused
+    multiply-add: one ulp of a ~6000 rad phase, 2.7e-6 on the mixed block
+    and 1.2e-4 on y3 on this input (a numpy emulation of the contracted
+    ramp matches its mixed tail to 4.7e-10).  The port takes the ramp
+    uncontracted, as ``nco_mix_pair_tm`` does.  The row-free lane 3 must
+    match the in-kernel stage too."""
+    monkeypatch.setenv("SDRM_FIR_PRECISION", "highest")
+    cfg = CONFIGS["lucky7"]
+    jpipe = JaxPipeline(JaxConfig(*cfg), BLOCK, exact=False, use_atan_lut="free")
+    pipe = DemodPipeline(FskDemodConfig(*cfg), BLOCK, device="cpu")
+    jstate = jstate_k = jpipe.init_full_state(C)
+    state = pipe.init_full_state(C)
+    s_rows = JaxDoppler.max_rows(BLOCK, ARGS["sampling_freq"])
+    rows = _doppler_rows(BLOCK, STEPS, {0: 0, 1: 3000, 2: -2500})
+    for x, lane_rows in zip(_raw_lanes(resources_dir, BLOCK, STEPS, C), rows):
+        jtables = tuple(map(jnp.asarray, segment_tables(lane_rows, s_rows, 128)))
+        x_p = jnp.asarray(_pad_lanes(x))
+        jfront, jy3 = jpipe._front_fused_full(jstate, jax_nco_mix(x_p, *jtables), interpret=True)
+        jstate = JaxState(*jfront, jstate.clock)
+        kfront, ky3 = jpipe._front_fused_full(jstate_k, x_p, interpret=True, dop=jtables)
+        jstate_k = JaxState(*kfront, jstate_k.clock)
+        dop = doppler_tables_from_numpy(jtables, C, device="cpu")
+        y3, front = front_ops.fused_front(torch.from_numpy(x), *state[:4], pipe.front_taps, dop)
+        state = DemodStateFull(*front, state.clock)
+
+        for want_y3, want, lanes in (
+            (jy3, jstate, [0, 1, 2, 3]),
+            (ky3, jstate_k, [3]),
+        ):
+            want = full_state_from_numpy(jax.tree.map(np.asarray, want), C, device="cpu")
+            iq = lanes + [C + k for k in lanes]
+            np.testing.assert_allclose(
+                y3.numpy()[:, lanes], np.asarray(want_y3)[:, lanes], rtol=0, atol=1e-4
+            )
+            torch.testing.assert_close(state.lpf1_hist[:, iq], want.lpf1_hist[:, iq], rtol=0, atol=2e-6)
+            torch.testing.assert_close(state.quad_prev[:, iq], want.quad_prev[:, iq], rtol=0, atol=1e-6)
+            for got, ref in ((state.lpf2_hist, want.lpf2_hist), (state.dc_hist, want.dc_hist)):
+                torch.testing.assert_close(got[:, lanes], ref[:, lanes], rtol=0, atol=1e-4)
+        # lane 3 has no rows: its tail is the raw input's, bit for bit
+        tail = x[-state.lpf1_hist.shape[0] :]
+        assert torch.equal(state.lpf1_hist[:, [3, 3 + C]], torch.from_numpy(tail[:, [3, 3 + C]]))
+        assert not torch.equal(state.lpf1_hist[:, :3], torch.from_numpy(tail[:, :3]))
+
+
+@pytest.mark.parametrize("name", ["lucky7", "lucky7_nodc"])
+@pytest.mark.parametrize("with_dop", [False, True])
+def test_fused_and_banded_fronts_bit_equal(resources_dir, name, with_dop):
+    block, blocks, c = 2048, 3, 3
+    pipe = DemodPipeline(FskDemodConfig(*CONFIGS[name]), block, device="cpu")
+    s_rows = JaxDoppler.max_rows(block, ARGS["sampling_freq"])
+    rows = _doppler_rows(block, blocks, {0: 0, 2: 1200})
+    st_f = st_b = pipe.init_full_state(c)
+    for x, lane_rows in zip(_raw_lanes(resources_dir, block, blocks, c), rows):
+        x = torch.from_numpy(x)
+        dop = None
+        if with_dop:
+            dop = doppler_tables_from_numpy(segment_tables(lane_rows, s_rows, c), c, device="cpu")
+        y3_f, f_f = front_ops.fused_front(x, *st_f[:4], pipe.front_taps, dop)
+        y3_b, f_b = front_ops.banded_front(x, *st_b[:4], pipe.front_taps, dop)
+        assert torch.equal(y3_f, y3_b)
+        for a, b in zip(f_f, f_b):
+            assert (a is None and b is None) or torch.equal(a, b)
+        st_f = DemodStateFull(*f_f, st_f.clock)
+        st_b = DemodStateFull(*f_b, st_b.clock)

@@ -5,8 +5,10 @@
 - the port's copies of the tap design, the MMSE bank and the arctangent
   table are bit-equal to the JAX package's (tolerance: none — the same
   numpy code on the same inputs);
-- the JAX <-> port state conversion round-trips exactly;
-- a kernel library's file name changes with its compiler flags.
+- the JAX <-> port state conversion round-trips exactly, and without a
+  device it goes to the card or raises;
+- a kernel library's file name changes with its compiler flags and with
+  the text of its source and of every shared header.
 """
 
 import ast
@@ -16,6 +18,9 @@ import sys
 
 import numpy as np
 import pytest
+import torch
+
+import jax
 
 from sdrmodem_tpu.dsp import taps as jtaps
 from sdrmodem_tpu.dsp.elementwise import dc_blocker_taps as j_dc_taps
@@ -27,7 +32,11 @@ from sdrmodem_tpu_torch.dsp.clock_recovery import suffix_cap_for
 from sdrmodem_tpu_torch.dsp.elementwise import dc_blocker_taps as t_dc_taps
 from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
 from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
-from sdrmodem_tpu_torch.utils.convert import full_state_from_numpy, full_state_to_numpy
+from sdrmodem_tpu_torch.utils.convert import (
+    doppler_tables_from_numpy,
+    full_state_from_numpy,
+    full_state_to_numpy,
+)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "sdrmodem_tpu_torch"
@@ -45,6 +54,9 @@ def test_import_pulls_in_no_jax():
         "import sys, sdrmodem_tpu_torch\n"
         "from sdrmodem_tpu_torch.dsp import pipeline\n"
         "from sdrmodem_tpu_torch.utils import convert, parity\n"
+        "from sdrmodem_tpu_torch.dsp import doppler, elementwise\n"
+        "from sdrmodem_tpu_torch.ops import fir, front, clock\n"
+        "from sdrmodem_tpu_torch.orbit import observer, sdp4, sgp4, solar, timeutil, tle\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'sdrmodem_tpu.'))"
         " or m == 'sdrmodem_tpu']\n"
         "assert not bad, bad\n"
@@ -53,8 +65,11 @@ def test_import_pulls_in_no_jax():
 
 
 def test_sources_import_nothing_of_the_jax_package():
-    sources = list(PORT.rglob("*.py"))
-    assert sources
+    sources = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    names = {p.relative_to(REPO).as_posix() for p in sources}
+    for want in ("sdrmodem_tpu_torch/orbit/sgp4.py", "sdrmodem_tpu_torch/dsp/doppler.py",
+                 "sdrmodem_tpu_torch/ops/fir.py"):
+        assert want in names
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -104,7 +119,7 @@ def test_state_conversion_round_trip(name):
         type(jstate.clock)(*(fill(f) for f in jstate.clock)),
     )
     pipe = DemodPipeline(FskDemodConfig(*CONFIGS[name]), 4096, device="cpu")
-    tstate = full_state_from_numpy(jstate, c)
+    tstate = full_state_from_numpy(jstate, c, device="cpu")
     ref = pipe.init_full_state(c)
     for got, want in zip(tstate[:4], ref[:4]):
         assert (got is None) == (want is None)
@@ -136,3 +151,36 @@ def test_library_name_follows_compiler_flags(monkeypatch):
     assert _build.library_path("clock") != clock
     monkeypatch.setattr(_build, "NVCC_FLAGS", [*_build.NVCC_FLAGS, "-lineinfo"])
     assert _build.library_path("front") != front
+
+
+def test_full_state_from_numpy_defaults_to_cuda():
+    """Without a device the state goes to the card; with no card it raises
+    rather than carrying on on the CPU."""
+    jstate = JaxPipeline(JaxConfig(*CONFIGS["lucky7"]), 4096, exact=False).init_full_state(2)
+    jstate = jax.tree.map(np.asarray, jstate)
+    if torch.cuda.is_available():
+        assert full_state_from_numpy(jstate, 2).lpf1_hist.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            full_state_from_numpy(jstate, 2)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            doppler_tables_from_numpy([np.zeros((1, 128), np.float32)] * 4, 2)
+
+
+def test_library_name_follows_sources(tmp_path, monkeypatch):
+    """A change of a kernel's source or of any shared header under csrc/
+    names a new library, so a stale build is never loaded (no nvcc
+    needed: only the names are computed)."""
+    for name, text in (("a.cu", "// a"), ("b.cu", "// b"), ("shared.cuh", "// v1")):
+        (tmp_path / name).write_text(text)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    a, b = _build.library_path("a"), _build.library_path("b")
+    assert a != b and a.name.startswith("liba-")
+    (tmp_path / "shared.cuh").write_text("// v2")
+    a2, b2 = _build.library_path("a"), _build.library_path("b")
+    assert a2 != a and b2 != b
+    (tmp_path / "a.cu").write_text("// a, edited")
+    assert _build.library_path("a") not in (a, a2)
+    assert _build.library_path("b") == b2
+    (tmp_path / "extra.cuh").write_text("// new header")
+    assert _build.library_path("b") != b2
