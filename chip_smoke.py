@@ -16,11 +16,16 @@ Phases (any failure exits non-zero, and no result line is printed):
              offset, and B8; the front with Doppler tables from the raw
              lucky7 pass on 64 lanes (the other 64 without rows, which must
              equal a run without Doppler bit for bit); the fused and banded
-             fronts bit for bit, with and without Doppler;
+             fronts bit for bit, with and without Doppler; the TX kernels,
+             B5 at 2048 B and 32 KiB at I = 2 and 60 and B6 at 5 and 128
+             streams x 2048 B, with a carried phase and history and a
+             ragged n_valid;
 3. golden  — the four reference fixtures through the port's
              make_batched_step_full(layout="tm"), and the raw lucky7 pass
              through the server's call make_batched_step_full("pallas",
-             doppler=True, layout="fanout"), on the card;
+             doppler=True, layout="fanout"), on the card; the TX golden
+             (320 samples), the card's TX into the card's RX, and 32 KiB
+             at I = 60 against the float64 chain;
 4. main    — the paths, each driven with the launch counts set to 0 just
              before it and read just after: (a) 128 lanes x 2^20 samples of
              the lucky7 configuration (the bench.py shape), layouts "tm" and
@@ -30,7 +35,13 @@ Phases (any failure exits non-zero, and no result line is printed):
              128 lanes x 2^20 with the LPF2 taps, decimation 2.  One warm-up
              and 5 timed steps each (3 for fir_tpu), by CUDA events.  On
              each path's own inputs, outside the counted runs, the fronts
-             and B3 are held against their plain versions;
+             and B3 are held against their plain versions.  (d) the
+             server's TX chain (server/session.py:707-726): 100 TxData of
+             2048 B through one StreamingGfskMod, then 8 of 32 KiB at I = 2
+             and 2 at I = 60, each followed by Doppler.process_tx; wall
+             time a call, then the same calls split into host prep, upload,
+             kernel, download and process_tx.  (e) process_pair_kernel on
+             128 streams x 2048 B (B6), one warm-up and 20 timed calls;
 5. kernels — each kernel alone at its path's shape: time, its plain
              version's time and error, its bound, and a PyTorch library
              call's time where one computes the same function.
@@ -54,6 +65,7 @@ FIXTURES = ROOT / "tests" / "fixtures"
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and f32 (non-tensor) rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12  # float64, non-tensor
 
 LUCKY7 = (48000, 4800, 5000, 2, 2000, True)
 CHECK_CONFIGS = {
@@ -63,6 +75,12 @@ CHECK_CONFIGS = {
 }
 LANES = 128
 CHECK_BLOCK = 65536
+TX_RADIO = (9600, 5000)  # baud, deviation
+# the reference's perf config (tools/perf.py:4, I = 2) and the PlutoSDR one
+# of the server's own test (tests/test_server.py:316, I = 60)
+TX_FS = (19200, 576000)
+TXDATA_MAX = 32768  # the wire's largest TxData (reference src/api_utils.c:8)
+TX_ATOL = 1e-4
 MAIN_BLOCK = 1 << 20
 SERVER_BLOCK = 262144  # the server's default buffer_size (server/config.py:76)
 MAIN_STEPS = 5
@@ -139,13 +157,29 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+def graph_ms(torch, fn, reps):
+    """Device time of one fn() alone: reps calls captured in one CUDA graph
+    and replayed, so the host's work around each launch (allocations,
+    checks, the ctypes call) is out of the window."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            out = fn()
+    graph.replay()
+    ms, _ = cuda_ms(torch, graph.replay, 3)
+    return ms / reps, out
+
+
 def counters():
     from sdrmodem_tpu_torch.ops import clock as clock_ops
     from sdrmodem_tpu_torch.ops import fir as fir_ops
     from sdrmodem_tpu_torch.ops import front as front_ops
 
+    from sdrmodem_tpu_torch.ops import tx as tx_ops
+
     return {"front": (front_ops, "launches"), "clock": (clock_ops, "launches"),
-            "fir": (fir_ops, "launches"), "fir_tpu": (fir_ops, "fir_tpu_launches")}
+            "fir": (fir_ops, "launches"), "fir_tpu": (fir_ops, "fir_tpu_launches"),
+            "tx_folded": (tx_ops, "folded_launches"), "tx": (tx_ops, "batched_launches")}
 
 
 def counted(torch, path, want, fn):
@@ -317,10 +351,81 @@ def check_doppler_front(torch, dev):
          "doppler front: tail error")
 
 
+def tx_mod(fs, dev):
+    from sdrmodem_tpu_torch.dsp.gfsk_mod import GfskModConfig, GfskModulator
+
+    return GfskModulator(GfskModConfig.from_radio(fs, *TX_RADIO), device=dev)
+
+
+def phase_gap(a, b):
+    """Largest distance on the circle between wrapped phases (tensors)."""
+    d = (a.double() - b.double()).abs().remainder(2 * np.pi)
+    return d.minimum(2 * np.pi - d).max().item()
+
+
+def check_tx(torch, dev):
+    """B5 and B6 against their plain versions on the card, with a carried
+    phase and history and a ragged n_valid: I/Q and the wrapped phase
+    within TX_ATOL, B6's exported history exact.  Returns the largest error
+    of each kernel."""
+    from sdrmodem_tpu_torch.ops import tx as tx_ops
+
+    rng = np.random.default_rng(11)
+    err = {"tx_folded": 0.0, "tx": 0.0}
+    log_err = {}
+    for fs in TX_FS:
+        mod = tx_mod(fs, dev)
+        args = (mod.taps, mod.interpolation, mod.config.sensitivity)
+        for nbytes in (2048, TXDATA_MAX):
+            data = torch.from_numpy(rng.integers(0, 256, nbytes).astype(np.uint8)).to(dev)
+            hist = torch.from_numpy(rng.choice([-1.0, 1.0], mod.k - 1).astype(np.float32)).to(dev)
+            nv = nbytes * 8 - 29
+            iq, ph = tx_ops.gfsk_tx_folded_iq(data, *args, 5.0, hist, n_valid=nv)
+            iq_p, ph_p = tx_ops.gfsk_tx_folded_iq_plain(data, *args, 5.0, hist, n_valid=nv)
+            torch.cuda.synchronize()
+            need(iq.shape == (nbytes * 8 * mod.interpolation,) and torch.isfinite(
+                torch.view_as_real(iq)).all().item(), f"tx_folded {nbytes} B I={mod.interpolation}: output")
+            e = max((iq - iq_p).abs().max().item(), phase_gap(ph, ph_p))
+            log_err[f"tx_folded {nbytes} B I={mod.interpolation}"] = e
+            err["tx_folded"] = max(err["tx_folded"], e)
+    # float NRZ through the JAX call's signature (i, q, phase')
+    mod = tx_mod(TX_FS[0], dev)
+    nrz = torch.from_numpy(rng.choice([-1.0, 1.0], 2048 * 8).astype(np.float32)).to(dev)
+    hist = torch.from_numpy(rng.choice([-1.0, 1.0], mod.k - 1).astype(np.float32)).to(dev)
+    args = (nrz, mod.taps, mod.interpolation, mod.config.sensitivity, 2.0, hist)
+    got = tx_ops.gfsk_tx_call_folded(*args, n_valid=2048 * 8 - 5)
+    ref = tx_ops.gfsk_tx_call_folded_plain(*args, n_valid=2048 * 8 - 5)
+    torch.cuda.synchronize()
+    e = max((got[0] - ref[0]).abs().max().item(), (got[1] - ref[1]).abs().max().item(),
+            phase_gap(got[2], ref[2]))
+    log_err[f"tx_folded float NRZ 2048 B I={mod.interpolation}"] = e
+    err["tx_folded"] = max(err["tx_folded"], e)
+    mod = tx_mod(TX_FS[0], dev)
+    args = (mod.taps, mod.interpolation, mod.config.sensitivity)
+    for c in (5, LANES):
+        nrz = torch.from_numpy(rng.choice([-1.0, 1.0], (2048 * 8, c)).astype(np.float32)).to(dev)
+        hist = torch.from_numpy(rng.choice([-1.0, 1.0], (mod.k - 1, c)).astype(np.float32)).to(dev)
+        ph0 = torch.from_numpy(rng.uniform(0, 2 * np.pi, c)).to(dev)
+        nv = 2048 * 8 - 13
+        got = tx_ops.gfsk_tx_call(nrz, *args, ph0, hist, n_valid=nv)
+        ref = tx_ops.gfsk_tx_call_plain(nrz, *args, ph0, hist, n_valid=nv)
+        torch.cuda.synchronize()
+        need(torch.equal(got[3], ref[3]), f"tx {c} streams: exported history differs from plain")
+        e = max((got[0] - ref[0]).abs().max().item(), (got[1] - ref[1]).abs().max().item(),
+                phase_gap(got[2], ref[2]))
+        log_err[f"tx {c} x 2048 B I={mod.interpolation}"] = e
+        err["tx"] = max(err["tx"], e)
+    log(f"[check] tx: max |kernel - plain| on I/Q and the phase {json.dumps(log_err)}; "
+        "B6's history exact")
+    need(max(err.values()) <= TX_ATOL, f"tx kernels differ from plain by {max(err.values())}")
+    return err
+
+
 def phase_check(torch, dev):
     check_front_and_clock(torch, dev)
     check_fir(torch, dev)
     check_doppler_front(torch, dev)
+    return check_tx(torch, dev)
 
 
 def phase_golden(torch, dev):
@@ -363,6 +468,64 @@ def phase_golden(torch, dev):
     log(f"[golden] lucky7 raw pass, server's Doppler step (fanout): {json.dumps(rep)}")
     need(rep["symbols"] >= 0.99 * len(golden), "doppler golden: too few symbols")
     need(within >= 0.995, f"doppler golden: only {within} within ±2 LSB")
+    golden_tx(torch, dev)
+
+
+def loopback_agreement(payload, soft):
+    """Hard-decision agreement of RX symbols with the sent bits at the best
+    offset (tests/test_golden_demod.py:91-110)."""
+    bits = np.unpackbits(payload).astype(np.int8) * 2 - 1
+    hard = np.sign(soft).astype(np.int8)
+    best = 0.0
+    for off in range(80):
+        n = min(len(hard) - off, len(bits))
+        best = max(best, float((hard[off : off + n] == bits[:n]).mean()))
+    return best
+
+
+def golden_tx(torch, dev):
+    """The reference's 320-sample TX golden through B5 and B6's route and
+    the streaming modulator; the card's TX into the card's RX; a 32 KiB
+    TxData at I = 60 against the float64 chain."""
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.gfsk_mod import GfskModConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.dsp.streaming import StreamingGfskMod
+    from sdrmodem_tpu_torch.utils.parity import demod_capture
+
+    vals = np.load(FIXTURES / "gfsk_mod_expected320.npy")
+    want = vals[0::2] + 1j * vals[1::2]
+    mod = tx_mod(TX_FS[0], dev)
+    ten = np.arange(10, dtype=np.uint8)
+    i, q, _ = mod.process_pair_kernel(ten)
+    ib, qb, _ = mod.process_pair_kernel(np.stack([ten, ten]))
+    got = {
+        "B5 (process_pair_kernel)": i.cpu().numpy() + 1j * q.cpu().numpy(),
+        "B6 (two streams)": ib.cpu().numpy() + 1j * qb.cpu().numpy(),
+        "StreamingGfskMod": StreamingGfskMod(mod.config, device=dev).process(ten),
+    }
+    err = {k: float(np.abs(v - want).max()) for k, v in got.items()}
+    log(f"[golden] TX 320 samples, max |I/Q - golden| {json.dumps(err)} (tolerance 0.01)")
+    need(max(err.values()) < 0.01, "TX golden: beyond 0.01")
+
+    fs, baud, deviation = 48000, 9600, 5000
+    payload = np.frombuffer(b"fused tx kernel loopback \x00\xff!!" * 8, dtype=np.uint8)
+    m = StreamingGfskMod(GfskModConfig.from_radio(fs, baud, deviation), device=dev)
+    iq = np.concatenate([m.process(payload[:100]), m.process(payload[100:])])
+    pipe = DemodPipeline(FskDemodConfig(fs, baud, deviation, 1, 2000, False), 4096, device=dev)
+    agree = loopback_agreement(payload, demod_capture(pipe, iq))
+    log(f"[golden] TX -> RX loopback on the card ({fs}/{baud}/{deviation}): hard decisions "
+        f"agree {agree:.6f} at the best offset")
+    need(agree >= 0.999, f"loopback agreement {agree}")
+
+    mod = tx_mod(TX_FS[1], dev)
+    data = np.random.default_rng(13).integers(0, 256, TXDATA_MAX).astype(np.uint8)
+    i, q, ph = mod.process_pair_kernel(data)
+    wi, wq, wph = mod.process_pair(data, exact=True)
+    e = max((i - wi).abs().max().item(), (q - wq).abs().max().item(), phase_gap(ph, wph))
+    log(f"[golden] TX 32 KiB at I = {mod.interpolation} ({i.numel()} samples): max |B5 - float64 "
+        f"chain| {e:.3e} on I/Q and the phase")
+    need(e <= TX_ATOL, f"TX at I = 60: {e} off the float64 chain")
 
 
 def front_cost(c, b, taps, d, dop=None):
@@ -493,8 +656,140 @@ def server_breakdown(torch, pipe, x, dop, step_ms):
         f"the rest (tails, int8, host) {rest:.4f} ms by subtraction")
 
 
+def tx_calls():
+    """Path (d)'s TxData in order: (sampling rate, bytes, through Doppler)."""
+    return ([(TX_FS[0], 2048, False)] * 100 + [(TX_FS[0], TXDATA_MAX, True)] * 8
+            + [(TX_FS[1], TXDATA_MAX, True)] * 2)
+
+
+def tx_session(fs, dev):
+    """A TX client's state as TxSession keeps it: the streaming modulator
+    and the Doppler corrector of the lucky7 pass at this sampling rate."""
+    from sdrmodem_tpu_torch.dsp.doppler import Doppler
+    from sdrmodem_tpu_torch.dsp.gfsk_mod import GfskModConfig
+    from sdrmodem_tpu_torch.dsp.streaming import StreamingGfskMod
+
+    mod = StreamingGfskMod(GfskModConfig.from_radio(fs, *TX_RADIO), device=dev)
+    return mod, Doppler(**{**DOPPLER, "sampling_freq": fs}, start_time_seconds=PASS_START)
+
+
+def stats(xs):
+    """(median, p90) of a list of seconds, in ms."""
+    return float(np.median(xs) * 1e3), float(np.percentile(xs, 90) * 1e3)
+
+
+def path_tx_server(torch, dev):
+    """(d) the server's TX chain: every TxData through StreamingGfskMod.process
+    (B5), the 32 KiB ones then through Doppler.process_tx, as
+    TxSession.handle_tx_data runs them.  Counted: each call launches B5's
+    three kernels and never runs the plain version.  Then the same calls
+    again, split into their steps (not counted)."""
+    calls = tx_calls()
+    rng = np.random.default_rng(12)
+    payloads = [rng.integers(0, 256, nb).astype(np.uint8) for _, nb, _ in calls]
+    for fs in TX_FS:  # load the library and warm each configuration up
+        tx_session(fs, dev)[0].process(payloads[0])
+    groups = {(fs, nb): f"{nb} B at I = {int(fs // TX_RADIO[0])}" for fs, nb, _ in calls}
+
+    def run():
+        sessions = {fs: tx_session(fs, dev) for fs in TX_FS}
+        walls = {g: [] for g in groups}
+        dop_walls, outs = [], []
+        for (fs, nb, with_dop), data in zip(calls, payloads):
+            mod, dop = sessions[fs]
+            t0 = time.perf_counter()
+            iq = mod.process(data)
+            t1 = time.perf_counter()
+            walls[(fs, nb)].append(t1 - t0)
+            if with_dop:
+                iq = dop.process_tx(iq)
+                dop_walls.append(time.perf_counter() - t1)
+            need(iq.shape == (nb * 8 * mod.mod.interpolation,) and np.isfinite(iq).all()
+                 and abs(np.abs(iq) - 1.0).max() < 1e-5, f"(d) TxData of {nb} B: output")
+            if len(outs) < 100:
+                outs.append(iq)
+        return walls, dop_walls, np.concatenate(outs)
+
+    (walls, dop_walls, stream), counts = counted(torch, "(d) TX, 100 x 2048 B + 8 + 2 x 32 KiB",
+                                                  ("tx_folded",), run)
+    need(counts["tx_folded"] == 3 * len(calls), f"(d) {counts['tx_folded']} TX launches for "
+         f"{len(calls)} TxData: a call did not run B5's three kernels")
+    # the 100 x 2048 B stream against the float64 chain over the whole payload
+    mod = tx_mod(TX_FS[0], dev)
+    wi, wq, _ = mod.process_pair(np.concatenate(payloads[:100]), exact=True)
+    err = max(np.abs(stream.real - wi.cpu().numpy()).max(), np.abs(stream.imag - wq.cpu().numpy()).max())
+    log(f"[main] (d) the 100 x 2048 B stream against one float64 pass: max {err:.3e}")
+    need(err <= TX_ATOL, f"(d) TX stream {err} off the float64 chain")
+    res = {}
+    for g, name in groups.items():
+        n_out = g[1] * 8 * int(g[0] // TX_RADIO[0])
+        med, p90 = stats(walls[g])
+        res[name] = dict(calls=len(walls[g]), median_ms=med, p90_ms=p90,
+                         msamples_s=n_out * len(walls[g]) / sum(walls[g]) / 1e6)
+    res["process_tx"] = dict(zip(("median_ms", "p90_ms"), stats(dop_walls)))
+    log(f"[main] (d) StreamingGfskMod.process wall a TxData: {json.dumps(res)}")
+
+    split = {name: {k: [] for k in ("prep", "upload", "launch_wall", "kernel", "download",
+                                    "process_tx")} for name in groups.values()}
+    sessions = {fs: tx_session(fs, dev) for fs in TX_FS}
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for (fs, nb, with_dop), data in zip(calls, payloads):
+        mod, dop = sessions[fs]
+        part = split[groups[(fs, nb)]]
+        t0 = time.perf_counter()
+        buf = mod.stage(data)
+        t1 = time.perf_counter()
+        dev_buf = mod.upload(buf)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        e0.record()
+        launched = mod.launch(dev_buf)
+        e1.record()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        iq = mod.fetch(launched, data)
+        t4 = time.perf_counter()
+        if with_dop:
+            dop.process_tx(iq)
+            part["process_tx"].append(time.perf_counter() - t4)
+        for k, v in (("prep", t1 - t0), ("upload", t2 - t1), ("launch_wall", t3 - t2),
+                     ("kernel", e0.elapsed_time(e1) * 1e-3), ("download", t4 - t3)):
+            part[k].append(v)
+    table = {name: {k: "%.4f / %.4f" % stats(v) for k, v in parts.items() if v}
+             for name, parts in split.items()}
+    log(f"[main] (d) a TxData split (median / p90 ms; kernel by CUDA events around the launch "
+        f"call, the host's enqueue included; the rest wall, synchronised after each step): "
+        f"{json.dumps(table)}")
+    return res, counts
+
+
+def path_tx_batched(torch, dev):
+    """(e) process_pair_kernel on 128 streams x 2048 B (B6): one warm-up
+    and 20 timed calls, the bytes already on the card."""
+    mod = tx_mod(TX_FS[0], dev)
+    data = torch.from_numpy(
+        np.random.default_rng(14).integers(0, 256, (LANES, 2048)).astype(np.uint8)).to(dev)
+
+    def run():
+        mod.process_pair_kernel(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms, out = cuda_ms(torch, lambda: mod.process_pair_kernel(data), 20)
+        return ms, (time.perf_counter() - t0) / 20, out
+
+    (ms, wall, (i, q, ph)), counts = counted(torch, "(e) TX batched 128 x 2048 B", ("tx",), run)
+    need(counts["tx"] == 3 * 21, f"(e) {counts['tx']} TX launches for 21 calls")
+    wi, wq, wph = mod.process_pair(data, exact=True)
+    err = max((i - wi).abs().max().item(), (q - wq).abs().max().item(), phase_gap(ph, wph))
+    need(i.shape == (LANES, 2048 * 16) and err <= TX_ATOL, f"(e) batched TX: {err} off the float64 chain")
+    rate = i.numel() / (ms * 1e-3) / 1e6
+    log(f"[main] (e) process_pair_kernel 128 x 2048 B: {ms:.4f} ms a call (CUDA events), "
+        f"{wall * 1e3:.4f} ms wall, {rate:.1f} Msamples/s; max {err:.3e} off the float64 chain")
+    return dict(ms=ms, wall_ms=wall * 1e3, msamples_s=rate), counts
+
+
 def phase_main(torch, dev):
-    """The main-path runs (a), (b) and (c), each counted on its own."""
+    """The main-path runs (a) to (e), each counted on its own."""
     from sdrmodem_tpu_torch.dsp.clock_recovery import chunk_plan
     from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
     from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
@@ -617,10 +912,90 @@ def phase_main(torch, dev):
     add(counts)
     need(y_fir.shape == (b // 2, c) and torch.isfinite(y_fir).all().item(), "fir_tpu: output")
     log(f"[main] (c) fir_tpu: {fir_tpu_ms:.4f} ms a call")
+    tx_server, counts = path_tx_server(torch, dev)
+    add(counts)
+    tx_batched, counts = path_tx_batched(torch, dev)
+    add(counts)
     log(f"[main] launches over every main-path run: {json.dumps(totals)}")
     return dict(totals=totals, fir_tpu_ms=fir_tpu_ms, x_fir=x_fir, y_fir=y_fir, lpf2=lpf2,
+                tx_server=tx_server, tx_batched=tx_batched,
                 server_ms={k: v["ms_step"] for k, v in server.items()},
                 front_err=max(front_errs), fir_err=max(fir_errs.values()))
+
+
+def tx_cost(rows, interp, lanes, k, packed):
+    """(bytes, flops) of TX over ``rows`` NRZ rows of ``lanes`` streams at
+    interpolation I: the NRZ read once (a bit a row packed, else float32),
+    the history, taps and float64 phases read once, the complex64 samples
+    (and B6's history) written once; a sample needs ~2k + 1 float32 flops
+    of FIR and increment, ~40 of sincos and ~6 float64 operations (the
+    prefix add and the mod-2-pi wrap), which count here as float32 flops
+    scaled by the two rates."""
+    samples = rows * interp * lanes
+    nrz = rows * lanes // 8 if packed else 4 * rows * lanes
+    state = 4 * (k - 1) * lanes * (1 if packed else 2) + 16 * lanes + 4 * k * interp
+    f32 = samples * (2 * k + 41)
+    f64 = samples * 6
+    return 8 * samples + nrz + state, f32 + f64 * F32_FLOP_PER_S / F64_FLOP_PER_S
+
+
+def tx_kernels(torch, dev, main, check_err):
+    """B5 alone at 2048 B and 32 KiB (I = 2) and 32 KiB (I = 60), its row at
+    the last; B6 alone at 128 x 2048 B: each against its plain version.
+    ``ms`` is the kernels' device time (``graph_ms``); ``wrapper_ms`` the
+    time a call of back-to-back wrapper calls, which the host sets at the
+    small sizes."""
+    from sdrmodem_tpu_torch.ops import tx as tx_ops
+
+    rng = np.random.default_rng(15)
+    folded = {}
+    for fs, nb in ((TX_FS[0], 2048), (TX_FS[0], TXDATA_MAX), (TX_FS[1], TXDATA_MAX)):
+        mod = tx_mod(fs, dev)
+        data = torch.from_numpy(rng.integers(0, 256, nb).astype(np.uint8)).to(dev)
+        hist = torch.from_numpy(rng.choice([-1.0, 1.0], mod.k - 1).astype(np.float32)).to(dev)
+        args = (data, mod.taps, mod.interpolation, mod.config.sensitivity, 1.0, hist)
+        tx_ops.gfsk_tx_folded_iq(*args)
+        wrapper_ms, _ = cuda_ms(torch, lambda: tx_ops.gfsk_tx_folded_iq(*args), 20)
+        ms, (iq, ph) = graph_ms(torch, lambda: tx_ops.gfsk_tx_folded_iq(*args), 20)
+        tx_ops.gfsk_tx_folded_iq_plain(*args)
+        plain_ms, (iq_p, ph_p) = cuda_ms(torch, lambda: tx_ops.gfsk_tx_folded_iq_plain(*args), 2)
+        err = max((iq - iq_p).abs().max().item(), phase_gap(ph, ph_p))
+        b, by = bound(*tx_cost(nb * 8, mod.interpolation, 1, mod.k, packed=True))
+        folded[f"{nb} B at I = {mod.interpolation}"] = dict(
+            ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+            max_abs_err=err)
+    mod = tx_mod(TX_FS[0], dev)
+    nrz = torch.from_numpy(rng.choice([-1.0, 1.0], (2048 * 8, LANES)).astype(np.float32)).to(dev)
+    hist = torch.zeros((mod.k - 1, LANES), dtype=torch.float32, device=dev)
+    ph0 = torch.zeros(LANES, dtype=torch.float64, device=dev)
+    args = (nrz, mod.taps, mod.interpolation, mod.config.sensitivity, ph0, hist)
+    tx_ops.gfsk_tx_call(*args)
+    wrapper_ms, _ = cuda_ms(torch, lambda: tx_ops.gfsk_tx_call(*args), 20)
+    ms, got = graph_ms(torch, lambda: tx_ops.gfsk_tx_call(*args), 20)
+    tx_ops.gfsk_tx_call_plain(*args)
+    plain_ms, ref = cuda_ms(torch, lambda: tx_ops.gfsk_tx_call_plain(*args), 2)
+    need(torch.equal(got[3], ref[3]), "tx at 128 x 2048 B: history differs from plain")
+    err = max((got[0] - ref[0]).abs().max().item(), (got[1] - ref[1]).abs().max().item(),
+              phase_gap(got[2], ref[2]))
+    b, by = bound(*tx_cost(2048 * 8, mod.interpolation, LANES, mod.k, packed=False))
+    batched = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                   max_abs_err=err)
+    log(f"[kernels] tx_folded (B5) alone: {json.dumps(folded)}; tx (B6) at 128 x 2048 B: "
+        f"{json.dumps(batched)}")
+    need(max(err, *(v["max_abs_err"] for v in folded.values())) <= TX_ATOL, "tx kernels at full width")
+    row5 = folded[f"{TXDATA_MAX} B at I = {TX_FS[1] // TX_RADIO[0]}"]
+    launches = main["totals"]
+    return [
+        dict(name="tx_folded", route="cuda", source="sdrmodem_tpu_torch/csrc/tx.cu",
+             replaces="sdrmodem_tpu/ops/pallas_tx.py:163", launches=launches["tx_folded"],
+             max_abs_err=max(check_err["tx_folded"], *(v["max_abs_err"] for v in folded.values())),
+             ms=row5["ms"], plain_ms=row5["plain_ms"], bound_ms=row5["bound_ms"],
+             bound_by=row5["bound_by"], library_ms=None),
+        dict(name="tx", route="cuda", source="sdrmodem_tpu_torch/csrc/tx.cu",
+             replaces="sdrmodem_tpu/ops/pallas_tx.py:61", launches=launches["tx"],
+             max_abs_err=max(check_err["tx"], err), ms=ms, plain_ms=plain_ms, bound_ms=b,
+             bound_by=by, library_ms=None),
+    ]
 
 
 def phase_kernels(torch, dev, main):
@@ -769,17 +1144,16 @@ def main() -> int:
     dev = torch.device("cuda")
     t_all = time.perf_counter()
     try:
+        done = {}
         for name, fn in (("build", phase_build), ("check", lambda: phase_check(torch, dev)),
-                         ("golden", lambda: phase_golden(torch, dev))):
+                         ("golden", lambda: phase_golden(torch, dev)),
+                         ("main", lambda: phase_main(torch, dev)),
+                         ("kernels", lambda: phase_kernels(torch, dev, done["main"])
+                          + tx_kernels(torch, dev, done["main"], done["check"]))):
             t0 = time.perf_counter()
-            fn()
+            done[name] = fn()
             log(f"[{name}] passed in {time.perf_counter() - t0:.3f} s")
-        t0 = time.perf_counter()
-        main_run = phase_main(torch, dev)
-        log(f"[main] passed in {time.perf_counter() - t0:.3f} s")
-        t0 = time.perf_counter()
-        kernels = phase_kernels(torch, dev, main_run)
-        log(f"[kernels] passed in {time.perf_counter() - t0:.3f} s")
+        kernels = done["kernels"]
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -1,4 +1,4 @@
-"""sdrmodem_tpu_torch — the GMSK/FSK demodulator on PyTorch and CUDA.
+"""sdrmodem_tpu_torch — the GMSK/FSK modem on PyTorch and CUDA.
 
 A port of ``sdrmodem_tpu`` to an NVIDIA Hopper GPU: plain tensor code is
 PyTorch, and each Pallas kernel of the JAX package becomes a CUDA C++
@@ -15,6 +15,7 @@ kernel wrapper runs its plain PyTorch version instead.
 __version__ = "0.1.0"
 
 from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+from sdrmodem_tpu_torch.dsp.gfsk_mod import GfskModConfig, GfskModulator
 from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
 
-__all__ = ["DemodPipeline", "FskDemodConfig", "__version__"]
+__all__ = ["DemodPipeline", "FskDemodConfig", "GfskModConfig", "GfskModulator", "__version__"]

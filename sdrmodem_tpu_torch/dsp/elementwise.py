@@ -12,7 +12,16 @@ Counterpart of ``sdrmodem_tpu/dsp/elementwise.py:28-69, 258-280, 347-388``:
 - ``nco_steps`` / ``nco_mix_pair_tm``
                         — the per-lane Doppler NCO multiply, the device
                           half of Doppler correction (dsp/doppler.py keeps
-                          the 1 Hz host half).
+                          the 1 Hz host half);
+- ``bytes_to_nrz``      — bytes to +-1 NRZ, MSB first (``gfsk_mod.py:44-50``);
+- ``nco_phases`` / ``nco_stream``
+                        — a complex NCO at an integer frequency
+                          (``elementwise.py:293-330``);
+- ``freq_mod_stream`` / ``freq_mod_stream_pair`` / ``freq_mod_pair_fast``
+                        — the TX VCO (``elementwise.py:333-457``): a float64
+                          phase prefix, or the two-level float32 one.  The
+                          TX kernels (``csrc/tx.cu``) carry the float64
+                          prefix, as ``freq_mod_stream_pair`` does.
 
 ``csrc/front.cu`` evaluates ``fast_atan2`` with the same operations in the
 same order, so the kernel and this plain version agree bit for bit;
@@ -26,8 +35,10 @@ import numpy as np
 import torch
 
 from sdrmodem_tpu_torch.dsp import taps as taps_mod
+from sdrmodem_tpu_torch.ops._build import resolve_device
 
 _PI = float(np.float32(np.pi))
+_TWO_PI32 = float(np.float32(2 * np.pi))
 _HALF_PI = float(np.float32(np.pi / 2))
 _TAN_MAP_RES = float(np.float32(0.003921569))  # smallest non-zero table value
 _TINY = float(np.float32(1e-45))
@@ -141,3 +152,95 @@ def nco_mix_pair_tm(
     cs, sn = torch.cos(ph), torch.sin(ph)
     i, q = x_tm[:, :c], x_tm[:, c:]
     return torch.cat([i * cs - q * sn, i * sn + q * cs], dim=1)
+
+
+def bytes_to_nrz(data: torch.Tensor) -> torch.Tensor:
+    """uint8 bytes (..., N) -> float32 (..., N*8) of +-1.0, MSB first."""
+    data = data.to(torch.uint8)
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=data.device)
+    bits = (data[..., :, None] >> shifts) & 1
+    nrz = torch.where(bits == 0, -1.0, 1.0).to(torch.float32)
+    return nrz.reshape(*data.shape[:-1], data.shape[-1] * 8)
+
+
+def nco_phases(freq, n: int, sampling_freq: float, phase0=0.0, *, device=None):
+    """Phases of a complex NCO at integer frequency ``freq`` for n samples
+    (reference src/dsp/sig_source.c:43-58): the increment is the float32
+    value 2*pi*freq/Fs, sample i gets phase0 + i*adj, taken in float64 and
+    reduced mod 2*pi, on ``device`` (CUDA when None, ``resolve_device``).
+    Returns (phases (n,) float32, next phase0 float64)."""
+    device = resolve_device(device)
+    adj = float(np.float32(np.float32(_TWO_PI32 * np.float32(freq)) / np.float32(sampling_freq)))
+    i = torch.arange(n, dtype=torch.float64, device=device)
+    ramp = torch.remainder(i * adj, 2 * np.pi)
+    ph0 = torch.as_tensor(phase0, dtype=torch.float64, device=device)
+    phase = torch.remainder(ph0 + ramp, 2 * np.pi)
+    next_phase = torch.remainder(ph0 + n * adj, 2 * np.pi)
+    return phase.float(), next_phase
+
+
+def nco_stream(freq, n: int, sampling_freq: float, amplitude: float = 1.0, phase0=0.0, *,
+               device=None):
+    """Complex NCO output amplitude * (cos + j sin) and the carried phase,
+    on ``device`` as ``nco_phases``."""
+    phase, next_phase = nco_phases(freq, n, sampling_freq, phase0, device=device)
+    amp = float(np.float32(amplitude))
+    return torch.complex(amp * torch.cos(phase), amp * torch.sin(phase)), next_phase
+
+
+def _vco_phase(x: torch.Tensor, sensitivity: float, phase0):
+    """phase0 + cumsum(float32(sensitivity * x)) along the last axis, in
+    float64, and the next phase mod 2*pi."""
+    sens = torch.tensor(float(np.float32(sensitivity)), dtype=torch.float32, device=x.device)
+    inc = (sens * x.to(torch.float32)).double()
+    ph0 = torch.as_tensor(phase0, dtype=torch.float64, device=x.device)
+    phase = ph0 + torch.cumsum(inc, dim=-1)
+    # an empty x carries phase0 on
+    last = phase[..., -1] if phase.shape[-1] else (ph0 + inc.sum(-1, keepdim=True))[..., 0]
+    return phase, torch.remainder(last, 2 * np.pi)
+
+
+def freq_mod_stream(x: torch.Tensor, sensitivity: float, phase0=0.0):
+    """VCO (reference src/dsp/frequency_modulator.c:48-57): phase[n] =
+    phase0 + sensitivity * cumsum(x), carried in float64 and reduced mod
+    2*pi; out = exp(j*phase).  x: (..., N) float32.  Returns ((..., N)
+    complex64, next phase float64)."""
+    phase, next_phase = _vco_phase(x, sensitivity, phase0)
+    ph32 = torch.remainder(phase, 2 * np.pi).float()
+    return torch.complex(torch.cos(ph32), torch.sin(ph32)), next_phase
+
+
+def freq_mod_stream_pair(x: torch.Tensor, sensitivity: float, phase0=0.0, *, exact: bool = True):
+    """``freq_mod_stream`` as (I, Q, next phase) float arrays; ``exact=False``
+    routes to the two-level float32 prefix (``freq_mod_pair_fast``)."""
+    if not exact:
+        return freq_mod_pair_fast(x, sensitivity, phase0)
+    phase, next_phase = _vco_phase(x, sensitivity, phase0)
+    ph32 = torch.remainder(phase, 2 * np.pi).float()
+    return torch.cos(ph32), torch.sin(ph32), next_phase
+
+
+def freq_mod_pair_fast(x: torch.Tensor, sensitivity: float, phase0=0.0, *, tile: int = 1024):
+    """The JAX package's production VCO: a float32 cumsum inside tiles of
+    ``tile`` samples, the tile offsets an exclusive float64 cumsum of the
+    tile totals reduced mod 2*pi.  Returns (I, Q, next phase float64) like
+    ``freq_mod_stream_pair``."""
+    xf = x.to(torch.float32)
+    shape = xf.shape
+    n = shape[-1]
+    m = min(tile, n)
+    pad = (-n) % m
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, pad))
+    tiles = xf.shape[-1] // m
+    sens = torch.tensor(float(np.float32(sensitivity)), dtype=torch.float32, device=x.device)
+    local = torch.cumsum((sens * xf).reshape(*shape[:-1], tiles, m), dim=-1)
+    totals = local[..., -1].double()
+    offs = torch.cumsum(totals, dim=-1) - totals
+    ph0 = torch.as_tensor(phase0, dtype=torch.float64, device=x.device)
+    offs = torch.remainder(ph0 + offs, 2 * np.pi)
+    phase = offs.float()[..., None] + local
+    next_phase = torch.remainder(offs[..., -1] + totals[..., -1], 2 * np.pi)
+    i = torch.cos(phase).reshape(*shape[:-1], tiles * m)[..., :n]
+    q = torch.sin(phase).reshape(*shape[:-1], tiles * m)[..., :n]
+    return i, q, next_phase

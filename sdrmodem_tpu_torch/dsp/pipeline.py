@@ -30,24 +30,11 @@ from sdrmodem_tpu_torch.dsp.clock_recovery import (
 )
 from sdrmodem_tpu_torch.dsp.elementwise import atan_table, dc_blocker_taps
 from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig, float_to_int8
+from sdrmodem_tpu_torch.ops._build import resolve_device
 from sdrmodem_tpu_torch.ops.front import FrontTaps, banded_front, fused_front
 
 LAYOUTS = ("cm", "tm", "fanout")
 FRONTS = {"fused": fused_front, "banded": banded_front}
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device``, or the current CUDA device when it is None.  Raises when
-    a CUDA device is asked for and there is none: nothing falls back to the
-    CPU unless the caller passes ``device="cpu"``."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"no CUDA device for {dev}; pass device='cpu' for the plain versions")
-        if dev.index is None:
-            # tensors report "cuda:N", so name the card the way they do
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 class DemodStateFull(NamedTuple):

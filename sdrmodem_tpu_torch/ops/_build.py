@@ -20,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
@@ -111,6 +113,20 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
         lib.cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``, or the current CUDA device when it
+    is None.  Raises when a CUDA device is asked for and there is none:
+    nothing falls back to the CPU unless the caller passes ``device="cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"no CUDA device for {dev}; pass device='cpu' for the plain versions")
+        if dev.index is None:
+            # tensors report "cuda:N", so name the card the way they do
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def device_kind(x, what: str) -> str:

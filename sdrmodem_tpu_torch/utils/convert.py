@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from sdrmodem_tpu_torch.dsp.clock_recovery import ClockFullState
-from sdrmodem_tpu_torch.dsp.pipeline import DemodStateFull, resolve_device
+from sdrmodem_tpu_torch.dsp.pipeline import DemodStateFull
+from sdrmodem_tpu_torch.ops._build import resolve_device
 
 LANES = 128  # the JAX package's lane multiple
 

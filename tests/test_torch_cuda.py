@@ -13,7 +13,10 @@ plain side), an ulp apart: the mixed tail within 2e-6 and quad_prev within
 1e-6.  The FIR kernel alone (B3, B8) within 1e-5 of its plain version.
 The clock, fed the same y3, is exact: both sum the interpolator in tap
 order and neither contracts a multiply and an add.  The fused and banded
-fronts run the same kernels in the same order: bit for bit.
+fronts run the same kernels in the same order: bit for bit.  The TX
+kernels (B5, B6) within 1e-4 of their plain versions on I/Q and the phase
+(both carry the phase prefix in float64, summed in another order, and
+take cos/sin from two libraries), the exported history exact.
 """
 
 import numpy as np
@@ -22,11 +25,14 @@ import torch
 
 from sdrmodem_tpu_torch.dsp.clock_recovery import chunk_plan, clock_mm_batched_full
 from sdrmodem_tpu_torch.dsp.doppler import Doppler
+from sdrmodem_tpu_torch.dsp.gfsk_mod import GfskModConfig, GfskModulator
+from sdrmodem_tpu_torch.dsp.streaming import StreamingGfskMod
 from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
 from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline, DemodStateFull
 from sdrmodem_tpu_torch.ops import clock as clock_ops
 from sdrmodem_tpu_torch.ops import fir as fir_ops
 from sdrmodem_tpu_torch.ops import front as front_ops
+from sdrmodem_tpu_torch.ops import tx as tx_ops
 from sdrmodem_tpu_torch.utils.convert import doppler_tables_from_numpy, segment_tables
 
 TLE = [
@@ -185,3 +191,79 @@ def test_fir_tpu_kernel_matches_plain(cuda, decim):
     torch.cuda.synchronize()
     assert y.shape == (-(-5001 // decim), 64)
     torch.testing.assert_close(y, y_p, rtol=0, atol=1e-5)
+
+
+TX_ATOL = 1e-4
+
+
+def _phase_gap(a, b):
+    """|a - b| on the circle: wrapped phases near 0 and 2 pi are close."""
+    d = abs(float(a) - float(b)) % (2 * np.pi)
+    return min(d, 2 * np.pi - d)
+
+
+def _tx_case(fs, seed):
+    mod = GfskModulator(GfskModConfig.from_radio(fs, 9600, 5000), device="cpu")
+    return mod, np.random.default_rng(seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fs,nbytes,packed", [(19200, 2048, True), (19200, 333, False),
+                                              (576000, 700, True)])
+def test_tx_folded_kernel_matches_plain(cuda, fs, nbytes, packed):
+    mod, rng = _tx_case(fs, nbytes)
+    data = torch.from_numpy(rng.integers(0, 256, nbytes).astype(np.uint8))
+    nrz = data if packed else tx_ops.bytes_to_nrz(data)
+    hist = torch.from_numpy(rng.choice([-1.0, 1.0], mod.k - 1).astype(np.float32))
+    args = (mod.taps, mod.interpolation, mod.config.sensitivity, 4.5)
+    n_valid = nbytes * 8 - 37  # a ragged tail adds no phase
+    n0 = tx_ops.folded_launches
+    if packed:
+        iq, ph = tx_ops.gfsk_tx_folded_iq(nrz.to(cuda), *args, hist.to(cuda), n_valid=n_valid)
+        iq_p, ph_p = tx_ops.gfsk_tx_folded_iq_plain(nrz, *args, hist, n_valid=n_valid)
+    else:  # float NRZ through the JAX call's signature, (i, q, phase')
+        i, q, ph = tx_ops.gfsk_tx_call_folded(nrz.to(cuda), *args, hist.to(cuda), n_valid=n_valid)
+        i_p, q_p, ph_p = tx_ops.gfsk_tx_call_folded_plain(nrz, *args, hist, n_valid=n_valid)
+        iq, iq_p = torch.complex(i, q), torch.complex(i_p, q_p)
+    assert tx_ops.folded_launches == n0 + 3
+    torch.testing.assert_close(iq.cpu(), iq_p, rtol=0, atol=TX_ATOL)
+    assert 0.0 <= ph.item() < 2 * np.pi
+    assert _phase_gap(ph.item(), ph_p.item()) < TX_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,nbytes", [(5, 96), (128, 256), (33, 1000)])
+def test_tx_batched_kernel_matches_plain(cuda, c, nbytes):
+    mod, rng = _tx_case(48000, c)
+    nrz_tm = torch.from_numpy(rng.choice([-1.0, 1.0], (nbytes * 8, c)).astype(np.float32))
+    hist = torch.from_numpy(rng.choice([-1.0, 1.0], (mod.k - 1, c)).astype(np.float32))
+    ph0 = torch.from_numpy(rng.uniform(0, 2 * np.pi, c))
+    args = (mod.taps, mod.interpolation, mod.config.sensitivity)
+    n_valid = nbytes * 8 - 11
+    n0 = tx_ops.batched_launches
+    out = tx_ops.gfsk_tx_call(nrz_tm.to(cuda), *args, ph0.to(cuda), hist.to(cuda), n_valid=n_valid)
+    assert tx_ops.batched_launches == n0 + 3
+    ref = tx_ops.gfsk_tx_call_plain(nrz_tm, *args, ph0, hist, n_valid=n_valid)
+    for got, want in zip(out[:2], ref[:2]):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TX_ATOL)
+    assert max(_phase_gap(a, b) for a, b in zip(out[2].tolist(), ref[2].tolist())) < TX_ATOL
+    assert torch.equal(out[3].cpu(), ref[3])
+
+
+@pytest.mark.cuda
+def test_streaming_mod_on_card_launches_b5(cuda):
+    cfg = GfskModConfig.from_radio(19200, 9600, 5000)
+    payload = np.random.default_rng(5).integers(0, 256, 40000).astype(np.uint8)
+    card, host = StreamingGfskMod(cfg), StreamingGfskMod(cfg, device="cpu")
+    assert card.device.type == "cuda"
+    n0 = tx_ops.folded_launches
+    got, want, i = [], [], 0
+    for c in (100, 250, 35000, 4650):
+        got.append(card.process(payload[i : i + c]))
+        want.append(host.process(payload[i : i + c]))
+        i += c
+    assert tx_ops.folded_launches == n0 + 3 * 5  # 35000 B is two dispatches
+    got, want = np.concatenate(got), np.concatenate(want)
+    assert got.shape == want.shape == (40000 * 8 * 2,)
+    assert np.abs(got - want).max() < TX_ATOL
+    assert _phase_gap(card.phase, host.phase) < TX_ATOL and np.array_equal(card.hist, host.hist)

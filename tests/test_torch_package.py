@@ -54,8 +54,8 @@ def test_import_pulls_in_no_jax():
         "import sys, sdrmodem_tpu_torch\n"
         "from sdrmodem_tpu_torch.dsp import pipeline\n"
         "from sdrmodem_tpu_torch.utils import convert, parity\n"
-        "from sdrmodem_tpu_torch.dsp import doppler, elementwise\n"
-        "from sdrmodem_tpu_torch.ops import fir, front, clock\n"
+        "from sdrmodem_tpu_torch.dsp import doppler, elementwise, fir, gfsk_mod, nco_host, streaming\n"
+        "from sdrmodem_tpu_torch.ops import fir, front, clock, tx\n"
         "from sdrmodem_tpu_torch.orbit import observer, sdp4, sgp4, solar, timeutil, tle\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'sdrmodem_tpu.'))"
         " or m == 'sdrmodem_tpu']\n"
@@ -68,7 +68,9 @@ def test_sources_import_nothing_of_the_jax_package():
     sources = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     names = {p.relative_to(REPO).as_posix() for p in sources}
     for want in ("sdrmodem_tpu_torch/orbit/sgp4.py", "sdrmodem_tpu_torch/dsp/doppler.py",
-                 "sdrmodem_tpu_torch/ops/fir.py"):
+                 "sdrmodem_tpu_torch/ops/fir.py", "sdrmodem_tpu_torch/dsp/gfsk_mod.py",
+                 "sdrmodem_tpu_torch/dsp/streaming.py", "sdrmodem_tpu_torch/dsp/nco_host.py",
+                 "sdrmodem_tpu_torch/ops/tx.py"):
         assert want in names
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
