@@ -19,13 +19,18 @@ Phases (any failure exits non-zero, and no result line is printed):
              fronts bit for bit, with and without Doppler; the TX kernels,
              B5 at 2048 B and 32 KiB at I = 2 and 60 and B6 at 5 and 128
              streams x 2048 B, with a carried phase and history and a
-             ragged n_valid;
+             ragged n_valid; B4 at 128 lanes x 65536 in both layouts (a NaN
+             stretch, ragged n_valid and read starts) and the float64 FIR at
+             the exact streamer's shapes, bit for bit;
 3. golden  — the four reference fixtures through the port's
              make_batched_step_full(layout="tm"), and the raw lucky7 pass
              through the server's call make_batched_step_full("pallas",
-             doppler=True, layout="fanout"), on the card; the TX golden
-             (320 samples), the card's TX into the card's RX, and 32 KiB
-             at I = 60 against the float64 chain;
+             doppler=True, layout="fanout"), on the card; the four
+             fixtures through the exact and float32 streamers and
+             FskDemodulator at block 262144, the exact streamer's bytes
+             equal to the same run on the CPU; the TX golden (320 samples),
+             the card's TX into the card's RX, and 32 KiB at I = 60
+             against the float64 chain;
 4. main    — the paths, each driven with the launch counts set to 0 just
              before it and read just after: (a) 128 lanes x 2^20 samples of
              the lucky7 configuration (the bench.py shape), layouts "tm" and
@@ -41,7 +46,15 @@ Phases (any failure exits non-zero, and no result line is printed):
              and 2 at I = 60, each followed by Doppler.process_tx; wall
              time a call, then the same calls split into host prep, upload,
              kernel, download and process_tx.  (e) process_pair_kernel on
-             128 streams x 2048 B (B6), one warm-up and 20 timed calls;
+             128 streams x 2048 B (B6), one warm-up and 20 timed calls.
+             (f) one exact-mode client (the server's default RX): the
+             lucky7 capture over 16 blocks of 262144 through the exact
+             streamer, ms a block and Msamples/s, then its stages and B4
+             alone; (g) the same in float32; (h) make_batched_step("pallas")
+             at 128 x 2^20, every lane full and then half the lanes short.
+             After (a), B4 over [suffix | y3] of its block, in both
+             layouts, must equal B2's symbols; in (f) and (g), B4 at the
+             streamer's one-lane buffer must equal its plain version;
 5. kernels — each kernel alone at its path's shape: time, its plain
              version's time and error, its bound, and a PyTorch library
              call's time where one computes the same function.
@@ -83,6 +96,7 @@ TXDATA_MAX = 32768  # the wire's largest TxData (reference src/api_utils.c:8)
 TX_ATOL = 1e-4
 MAIN_BLOCK = 1 << 20
 SERVER_BLOCK = 262144  # the server's default buffer_size (server/config.py:76)
+STREAM_BLOCKS = 16  # blocks of one client's stream in paths (f) and (g)
 MAIN_STEPS = 5
 FRONT_ATOL = 1e-4  # tests/test_fused_front.py:46
 MIXED_ATOL = 2e-6  # the NCO's cos and sin, an ulp apart (tests/test_torch_doppler.py)
@@ -178,13 +192,16 @@ def counters():
     from sdrmodem_tpu_torch.ops import tx as tx_ops
 
     return {"front": (front_ops, "launches"), "clock": (clock_ops, "launches"),
+            "clock_ragged": (clock_ops, "ragged_launches"),
             "fir": (fir_ops, "launches"), "fir_tpu": (fir_ops, "fir_tpu_launches"),
+            "fir_exact": (fir_ops, "exact_launches"),
             "tx_folded": (tx_ops, "folded_launches"), "tx": (tx_ops, "batched_launches")}
 
 
-def counted(torch, path, want, fn):
+def counted(torch, path, want, fn, never=()):
     """Run one path of the main run with every launch count set to 0 just
-    before it and read just after; fail if a kernel in ``want`` never ran."""
+    before it and read just after; fail if a kernel in ``want`` never ran,
+    or one in ``never`` ran."""
     for mod, attr in counters().values():
         setattr(mod, attr, 0)
     out = fn()
@@ -193,6 +210,8 @@ def counted(torch, path, want, fn):
     log(f"[main] {path}: launches {json.dumps(counts)}")
     for name in want:
         need(counts[name] > 0, f"{path}: kernel {name} was never launched")
+    for name in never:
+        need(counts[name] == 0, f"{path}: kernel {name} was launched off its path")
     return out, counts
 
 
@@ -421,11 +440,80 @@ def check_tx(torch, dev):
     return err
 
 
+def check_ragged(torch, dev):
+    """B4 against its plain version at 128 lanes x 65536 of the lucky7 y3,
+    both layouts, with a NaN stretch, ragged n_valid and read starts; the
+    float64 FIR against its plain version at the exact streamer's three
+    shapes and at 256 lanes.  Bit for bit.  Returns B4's times at this size
+    (its plain version is timed only here: at the main path's size it would
+    take minutes)."""
+    from sdrmodem_tpu_torch.dsp.clock_recovery import max_symbols
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.ops import clock as clock_ops
+    from sdrmodem_tpu_torch.ops import fir as fir_ops
+    from sdrmodem_tpu_torch.ops.front import fused_front
+
+    c = LANES
+    pipe = DemodPipeline(FskDemodConfig(*LUCKY7), 2 * CHECK_BLOCK, device=dev)
+    st = pipe.init_full_state(c)
+    y3, _ = fused_front(capture_lanes(torch, dev, 2 * CHECK_BLOCK, c), *st[:4], pipe.front_taps)
+    y3[1000:1040, 5] = float("nan")
+    n = y3.shape[0]
+    p = pipe.config.clock_params()
+    n_valid = torch.full((c,), n, dtype=torch.int32, device=dev)
+    n_valid[1::2] -= torch.arange(c // 2, dtype=torch.int32, device=dev) * 97 + 1
+    args = (n_valid, torch.full((c,), p["omega"], device=dev), torch.full((c,), p["mu"], device=dev),
+            torch.zeros(c, device=dev), (torch.arange(c, device=dev) % 9).to(torch.int32))
+    kw = dict(omega_mid=p["omega"], omega_relative_limit=p["omega_relative_limit"],
+              gain_omega=p["gain_omega"], gain_mu=p["gain_mu"],
+              num_symbols=max_symbols(n, p["omega"], p["omega_relative_limit"], p["gain_mu"]))
+    times = {}
+    for layout, y in (("time-major", y3), ("channel-major", y3.T.contiguous())):
+        tm = layout == "time-major"
+        clock_ops.clock_mm_tpu(y, *args, time_major=tm, **kw)  # warm-up
+        ms, got = cuda_ms(torch, lambda: clock_ops.clock_mm_tpu(y, *args, time_major=tm, **kw), 3)
+        plain_ms, want = cuda_ms(torch, lambda: clock_ops.clock_mm_tpu_plain(y, *args, time_major=tm, **kw), 1)
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and all(
+            torch.equal(got[2][key], want[2][key]) for key in ("omega", "mu", "last", "ii"))
+        need(same, f"B4 ({layout}) differs from its plain version")
+        err = (got[0] - want[0]).abs().max().item()
+        need(got[1].min().item() > 0.9 * (n - 97 * c // 2) / p["omega"], f"B4 ({layout}): too few symbols")
+        need((got[0][5, : got[1][5]] == 0).sum().item() >= 6, "B4: the NaN stretch emitted no zeros")
+        times[layout] = dict(ms=ms, plain_ms=plain_ms, symbols=int(got[1].sum().item()), max_abs_err=err)
+    log(f"[check] B4 at {c} x {n} against its plain version: equal bit for bit in both layouts "
+        f"(NaN stretch, ragged n_valid, read starts); kernel and plain ms at this size "
+        f"{json.dumps(times)}")
+
+    x = capture_lanes(torch, dev, SERVER_BLOCK, 128)
+    taps = lucky7_taps()
+    b, n2 = SERVER_BLOCK, SERVER_BLOCK // 2 + 1
+    shapes = {  # the exact streamer's LPF1 (I and Q), LPF2 and DC, and 256 lanes
+        "lpf1": (x[:, [0, 128]].contiguous(), 1, b),
+        "lpf2": (x[:, :1].contiguous(), 2, n2),
+        "dc": (x[: n2 + 636, :1].contiguous(), 1, n2),
+        "lpf1 256 lanes": (x, 1, b),
+    }
+    for name, (xs, stride, n_out) in shapes.items():
+        rev = torch.from_numpy(taps[name.split()[0]]).to(dev)
+        xw = torch.cat([xs.new_zeros((rev.numel() - 1, xs.shape[1])), xs])
+        y = fir_ops.conv1d_exact_tm(xw, rev, stride, n_out)
+        y_p = fir_ops.conv1d_exact_tm_plain(xw, rev, stride, n_out)
+        torch.cuda.synchronize()
+        need(torch.isfinite(y).all().item() and torch.equal(y, y_p),
+             f"the float64 FIR ({name}) differs from its plain version")
+    log(f"[check] the float64 FIR at {json.dumps({k: list(v[0].shape) for k, v in shapes.items()})}: "
+        "equal to its plain version bit for bit")
+    return times
+
+
 def phase_check(torch, dev):
     check_front_and_clock(torch, dev)
     check_fir(torch, dev)
     check_doppler_front(torch, dev)
-    return check_tx(torch, dev)
+    err = check_tx(torch, dev)
+    err["ragged"] = check_ragged(torch, dev)
+    return err
 
 
 def phase_golden(torch, dev):
@@ -468,7 +556,66 @@ def phase_golden(torch, dev):
     log(f"[golden] lucky7 raw pass, server's Doppler step (fanout): {json.dumps(rep)}")
     need(rep["symbols"] >= 0.99 * len(golden), "doppler golden: too few symbols")
     need(within >= 0.995, f"doppler golden: only {within} within ±2 LSB")
+    golden_ragged(torch, dev)
     golden_tx(torch, dev)
+
+
+def exact_stage_gap(torch, dev, cfg, iq):
+    """Where the exact streamer's first block parts between the card and
+    the CPU: y3 of the front, then the clock fed the CPU's y3."""
+    from sdrmodem_tpu_torch.dsp.clock_recovery import clock_mm_stream
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+
+    buf = np.zeros((2, SERVER_BLOCK), np.float32)
+    blk = iq[:SERVER_BLOCK]
+    buf[0, : len(blk)], buf[1, : len(blk)] = blk.real, blk.imag
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        pipe = DemodPipeline(cfg, SERVER_BLOCK, exact=True, device=d)
+        st = pipe.init_state()
+        nv = torch.tensor(len(blk), dtype=torch.int32, device=d)
+        _, y3, n3 = pipe._front_impl(st, torch.from_numpy(buf).to(d), nv)
+        res[d.type] = (st, y3.cpu(), n3.cpu(), pipe)
+    (st_k, y3_k, n3_k, pk), (st_c, y3_c, n3_c, pc) = res["cuda"], res["cpu"]
+    kw = pc._clock_kw()
+    o_k, c_k, _ = clock_mm_stream(y3_c.to(dev), state=st_k.clock, n_valid=n3_c.to(dev), **kw)
+    o_c, c_c, _ = clock_mm_stream(y3_c, state=st_c.clock, n_valid=n3_c, **kw)
+    return dict(y3_max_gap=(y3_k - y3_c).abs().max().item(), n3_equal=bool(torch.equal(n3_k, n3_c)),
+                clock_on_cpu_y3_equal=bool(torch.equal(o_k.cpu(), o_c) and int(c_k) == int(c_c)))
+
+
+def golden_ragged(torch, dev):
+    """The four fixtures through the server's per-client RX on the card at
+    its default block (the exact streamer, FskDemodulator, the float32
+    streamer); the exact streamer's bytes must equal the same on the CPU."""
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodulator
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.utils.parity import GOLDEN_CASES, golden_report
+
+    for name, cfg, fin, fexp, _ in GOLDEN_CASES:
+        iq = np.fromfile(FIXTURES / fin, np.complex64)
+        golden = np.fromfile(FIXTURES / fexp, np.int8)
+        sym, cnt, _ = FskDemodulator(cfg, device=dev).process(iq)
+        routes = {
+            "exact streamer": DemodPipeline(cfg, SERVER_BLOCK, exact=True, device=dev).streamer().process(iq),
+            "FskDemodulator": sym[: int(cnt)].cpu().numpy(),
+            "float32 streamer": DemodPipeline(cfg, SERVER_BLOCK, device=dev).streamer().process(iq),
+        }
+        reps = {}
+        for route, got in routes.items():
+            rep = golden_report(got, golden)
+            reps[route] = {k: rep[k] for k in ("symbols", "max_lsb", "hard_decision_agreement")}
+            need(rep["symbols"] >= 0.99 * len(golden), f"{name} {route}: too few symbols")
+            need(rep["hard_decision_agreement"] == 1.0, f"{name} {route}: hard decisions differ")
+            need(rep["max_lsb"] <= 2, f"{name} {route}: {rep['max_lsb']} LSB from the golden")
+        host = DemodPipeline(cfg, SERVER_BLOCK, exact=True, device="cpu").streamer().process(iq)
+        same = bool(np.array_equal(routes["exact streamer"], host))
+        log(f"[golden] {name} at block {SERVER_BLOCK} on the card: {json.dumps(reps)}; "
+            f"exact streamer card == CPU: {same}")
+        if not same:
+            log(f"[golden] FINDING {name}: the exact streamer parts between card and CPU: "
+                f"{json.dumps(exact_stage_gap(torch, dev, cfg, iq))}")
+        need(same, f"{name}: the exact streamer's bytes on the card differ from the CPU's")
 
 
 def loopback_agreement(payload, soft):
@@ -844,6 +991,7 @@ def phase_main(torch, dev):
         front_ops.fused_front(x_tm, *st[:4], pipe.front_taps),
         front_ops.fused_front_plain(x_tm, *st[:4], pipe.front_taps), doppler=False,
     )]
+    b4_b2 = b4_against_b2(torch, pipe, x_tm)
     del x_tm, x_fan, one, st
 
     # ---- (b) the server's step at its default shape, Doppler on every lane
@@ -916,11 +1064,229 @@ def phase_main(torch, dev):
     add(counts)
     tx_batched, counts = path_tx_batched(torch, dev)
     add(counts)
+    streams = {}
+    for exact in (True, False):
+        streams["exact" if exact else "float32"], counts = path_streamer(torch, dev, exact)
+        add(counts)
+    ragged, counts = path_ragged_step(torch, dev)
+    add(counts)
     log(f"[main] launches over every main-path run: {json.dumps(totals)}")
     return dict(totals=totals, fir_tpu_ms=fir_tpu_ms, x_fir=x_fir, y_fir=y_fir, lpf2=lpf2,
-                tx_server=tx_server, tx_batched=tx_batched,
-                server_ms={k: v["ms_step"] for k, v in server.items()},
+                tx_server=tx_server, tx_batched=tx_batched, streams=streams, ragged=ragged,
+                b4_b2=b4_b2, server_ms={k: v["ms_step"] for k, v in server.items()},
                 front_err=max(front_errs), fir_err=max(fir_errs.values()))
+
+
+def b4_against_b2(torch, pipe, x_tm):
+    """B4 over [suffix | y3] of path (a)'s first block, from sfx - resid,
+    in both layouts (channel-major is path (h)'s layout, at its width),
+    against B2's symbols on the same y3 (outside the counted runs).  The
+    walks are one stream, B2's cut into chunks: each lane's symbols must be
+    equal.  A difference is logged with its lane and symbol, then fails the
+    run.  Returns (B4's time-major ms at this shape, its bound)."""
+    from sdrmodem_tpu_torch.dsp.clock_recovery import clock_mm_batched_full, max_symbols
+    from sdrmodem_tpu_torch.ops import clock as clock_ops
+    from sdrmodem_tpu_torch.ops.front import fused_front
+
+    c = x_tm.shape[1] // 2
+    st = pipe.init_full_state(c)
+    p = pipe.config.clock_params()
+    y3, _ = fused_front(x_tm, *st[:4], pipe.front_taps)
+    outs2, counts2, _ = clock_mm_batched_full(y3, st.clock, bank=pipe.bank, **p)
+    ck = st.clock
+    sfx = ck.suffix.shape[0]
+    work = torch.cat([ck.suffix, y3]).contiguous()
+    w = work.shape[0]
+    dev = y3.device
+    args = (torch.full((c,), w, dtype=torch.int32, device=dev), ck.omega, ck.mu,
+            ck.last_sample, (sfx - ck.resid).to(torch.int32))
+    kw = dict(omega_mid=p["omega"], omega_relative_limit=p["omega_relative_limit"],
+              gain_omega=p["gain_omega"], gain_mu=p["gain_mu"],
+              num_symbols=max_symbols(w, p["omega"], p["omega_relative_limit"], p["gain_mu"]))
+    ms, tm = cuda_ms(torch, lambda: clock_ops.clock_mm_tpu(work, *args, time_major=True, **kw), 1)
+    work_cm = work.T.contiguous()
+    ms_cm, cm = cuda_ms(torch, lambda: clock_ops.clock_mm_tpu(work_cm, *args, **kw), 1)
+    del work_cm
+    k2 = outs2.shape[2]
+    seq2 = outs2[torch.arange(k2, device=dev)[None, None, :] < counts2[:, :, None]]
+    total2 = counts2.sum(1).to(torch.int32)
+    for layout, (outs4, counts4, _) in (("time-major", tm), ("channel-major", cm)):
+        k4 = outs4.shape[1]
+        seq4 = outs4[torch.arange(k4, device=dev)[None, :] < counts4[:, None]]
+        same_counts = torch.equal(total2, counts4)
+        equal = same_counts and torch.equal(seq2, seq4)
+        if not equal:
+            lane = None if same_counts else int((total2 != counts4).nonzero()[0, 0])
+            log(f"[main] (a) FINDING: B4 ({layout}) over [suffix | y3] differs from B2: counts "
+                f"{total2[:4].tolist()} vs {counts4[:4].tolist()}, first lane with other counts {lane}; "
+                f"max |diff| over the common prefix "
+                f"{(seq2[: len(seq4)] - seq4[: len(seq2)]).abs().max().item()}")
+        need(equal, f"(a) B4 ({layout}) over [suffix | y3] differs from B2's symbols")
+    symbols = int(tm[1].sum().item())
+    log(f"[main] (a) B4 over [suffix | y3] of the first block equals B2's symbols, bit for bit, "
+        f"in both layouts ({symbols} symbols over {c} lanes); B4 at {c} x {w} {ms:.4f} ms "
+        f"time-major, {ms_cm:.4f} ms channel-major")
+    return ms, bound(*ragged_clock_cost(c, w, tm[0].shape[1], symbols))
+
+
+def stream_split(torch, pipe, iq_block):
+    """Each stage of one streamer block alone, by CUDA events: the three
+    FIRs, the quad demod and the clock (on the front's own outputs); and
+    B4 alone inside the clock, on the work buffer the clock assembles.
+    B4 is held bit for bit against its plain version on that buffer.
+    Returns (stage ms, B4's ms, plain ms, shape and bound)."""
+    from sdrmodem_tpu_torch.dsp.clock_recovery import (
+        ClockState, _ragged_work, clock_mm_stream, max_symbols)
+    from sdrmodem_tpu_torch.dsp.pipeline import _fir_ragged, _quad_demod_ragged
+    from sdrmodem_tpu_torch.ops import clock as clock_ops
+
+    dev, taps, cfg = pipe.device, pipe.front_taps, pipe.config
+    st = pipe.init_state()
+    x = torch.from_numpy(np.stack([iq_block.real, iq_block.imag]).astype(np.float32)).to(dev)
+    nv = torch.tensor(len(iq_block), dtype=torch.int32, device=dev)
+    stages = {
+        "lpf1": lambda: _fir_ragged(st.lpf1, x, nv, taps.rev1, 1, pipe.max_mid, pipe.exact),
+    }
+    _, y1, n1 = stages["lpf1"]()
+    stages["quad demod"] = lambda: _quad_demod_ragged(st.quad_prev, y1, n1, cfg.quad_gain,
+                                                      pipe.use_atan_lut, taps.atan_table)
+    _, yq = stages["quad demod"]()
+    stages["lpf2"] = lambda: _fir_ragged(st.lpf2, yq[None, :], n1, taps.rev2, cfg.decimation,
+                                         pipe.max_dec, pipe.exact)
+    _, y3, n3 = stages["lpf2"]()
+    if taps.rev_dc is not None:
+        stages["dc"] = lambda: _fir_ragged(st.dc, y3, n3, taps.rev_dc, 1, pipe.max_dec, pipe.exact)
+        _, y3, n3 = stages["dc"]()
+    stages["clock"] = lambda: clock_mm_stream(y3[0], state=st.clock, n_valid=n3, **pipe._clock_kw())
+    stages["clock"]()
+    split = {k: cuda_ms(torch, f, 5)[0] for k, f in stages.items()}
+    ck = ClockState(*(v[None] for v in st.clock))
+    work, base_valid, ii0 = _ragged_work(y3, n3[None], ck)
+    p = cfg.clock_params()
+    kw = dict(omega_mid=p["omega"], omega_relative_limit=p["omega_relative_limit"],
+              gain_omega=p["gain_omega"], gain_mu=p["gain_mu"],
+              num_symbols=max_symbols(y3.shape[1] + ck.tail.shape[-1], p["omega"],
+                                      p["omega_relative_limit"], p["gain_mu"]))
+    args = (work, base_valid, ck.omega, ck.mu, ck.last_sample, ii0)
+    b4 = lambda: clock_ops.clock_mm_tpu(*args, **kw)
+    b4()
+    b4_ms, got = cuda_ms(torch, b4, 5)
+    # held bit for bit against its plain version at this shape (one lane)
+    plain_ms, want = cuda_ms(torch, lambda: clock_ops.clock_mm_tpu_plain(*args, **kw), 1)
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and all(
+        torch.equal(got[2][key], want[2][key]) for key in ("omega", "mu", "last", "ii"))
+    need(same, f"B4 at the streamer's 1 x {work.shape[1]} differs from its plain version")
+    outs, counts, _ = got
+    b4_bound = bound(*ragged_clock_cost(1, work.shape[1], outs.shape[1], int(counts.sum().item())))
+    return split, dict(ms=b4_ms, plain_ms=plain_ms, shape=f"1 x {work.shape[1]}", bound=b4_bound)
+
+
+def path_streamer(torch, dev, exact):
+    """(f)/(g) one client of the server's per-client RX: the lucky7 capture
+    repeated over STREAM_BLOCKS blocks of 262144 through one streamer,
+    ``process`` a block, the symbols back in numpy each time."""
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.utils.parity import golden_report
+
+    tag = "(f) exact" if exact else "(g) float32"
+    b = SERVER_BLOCK
+    iq = np.resize(np.fromfile(FIXTURES / "lucky7.expected.cf32", np.complex64), STREAM_BLOCKS * b)
+    pipe = DemodPipeline(FskDemodConfig(*LUCKY7), b, exact=exact, device=dev)
+    pipe.streamer().process(iq[:b])  # warm-up: the libraries loaded
+
+    def run():
+        s = pipe.streamer()
+        walls, out = [], []
+        for k in range(STREAM_BLOCKS):
+            t0 = time.perf_counter()
+            out.append(s.process(iq[k * b : (k + 1) * b]))
+            walls.append(time.perf_counter() - t0)
+        return walls, np.concatenate(out)
+
+    (walls, sym), counts = counted(
+        torch, f"{tag} streamer, one client, {STREAM_BLOCKS} x {b}",
+        ("clock_ragged", "fir_exact" if exact else "fir"), run,
+        never=("front", "clock", "fir" if exact else "fir_exact"))
+    need(counts["clock_ragged"] == STREAM_BLOCKS, f"{tag}: {counts['clock_ragged']} B4 launches")
+    golden = np.fromfile(FIXTURES / "lucky7.expected.s8", np.int8)
+    rep = golden_report(sym[: len(golden)], golden)
+    need(rep["max_lsb"] <= 2 and rep["hard_decision_agreement"] == 1.0,
+         f"{tag}: the capture's first pass is {rep['max_lsb']} LSB from the golden")
+    per_pass = len(sym) / (STREAM_BLOCKS * b / 96000)
+    need(abs(per_pass - len(golden)) < 0.01 * len(golden), f"{tag}: {len(sym)} symbols")
+    ms = float(np.median(walls) * 1e3)
+    rate = STREAM_BLOCKS * b / sum(walls) / 1e6
+    split, b4 = stream_split(torch, pipe, iq[:b])
+    log(f"[main] {tag} streamer: {ms:.4f} ms a block (median wall, numpy in and out), "
+        f"{rate:.3f} Msamples/s over {STREAM_BLOCKS} blocks, {len(sym)} symbols; stages alone "
+        f"(CUDA events, ms): {json.dumps(split)}; the rest (glue, copies, int8) "
+        f"{ms - sum(split.values()):.4f} ms by subtraction; B4 alone inside the clock "
+        f"{b4['ms']:.4f} ms at {b4['shape']} (bound {b4['bound'][0]:.6f} ms by {b4['bound'][1]}), "
+        f"equal to its plain version bit for bit (plain {b4['plain_ms']:.1f} ms)")
+    return dict(ms_block=ms, msamples_s=rate, split=split, b4_ms=b4["ms"]), counts
+
+
+def path_ragged_step(torch, dev):
+    """(h) make_batched_step("pallas") at the bench.py shape, 128 x 2^20,
+    every lane full and then half the lanes 12345 short; then B4 alone at
+    this step's shape (channel-major, 128 x (2^19 + 2 cap))."""
+    from sdrmodem_tpu_torch.dsp.clock_recovery import _ragged_work, max_symbols
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.ops import clock as clock_ops
+
+    c, b = LANES, MAIN_BLOCK
+    pipe = DemodPipeline(FskDemodConfig(*LUCKY7), b, device=dev)
+    x_tm = capture_lanes(torch, dev, b, c)
+    x = torch.stack([x_tm[:, :c].T, x_tm[:, c:].T], dim=1).contiguous()  # (C, 2, B)
+    del x_tm
+    step = pipe.make_batched_step("pallas")
+    full = torch.full((c,), b, dtype=torch.int32, device=dev)
+    ragged = full.clone()
+    ragged[c // 2 :] -= 12345
+    res, total = {}, {}
+    omega = pipe.config.clock_params()["omega"]
+    for name, nv in (("full", full), ("ragged", ragged)):
+        (ms, first, _), counts = counted(
+            torch, f"(h) ragged step 128 x 2^20, n_valid {name}", ("clock_ragged", "fir"),
+            lambda: drive(torch, step, pipe.init_state(channels=c), [(x, nv)] * (MAIN_STEPS + 1)),
+            never=("front", "clock", "fir_exact"))
+        sym, cnt = first
+        want = nv.double() / pipe.config.decimation / omega
+        need(sym.dtype == torch.int8 and cnt.shape == (c,) and sym.abs().max().item() > 64,
+             f"(h) {name}: outputs")
+        need(((cnt.double() - want).abs() < 0.02 * want).all().item(), f"(h) {name}: counts {cnt[:4].tolist()}")
+        res[name] = ms
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        log(f"[main] (h) ragged step, n_valid {name}: {ms:.4f} ms/step (CUDA events), "
+            f"{c * b / (ms * 1e-3) / 1e6:.1f} Msamples/s")
+    state = pipe.init_state(channels=c)
+    _, y3, n3 = pipe._front_batched(state, x, full)
+    work, base_valid, ii0 = _ragged_work(y3, n3, state.clock)
+    p = pipe.config.clock_params()
+    kw = dict(omega_mid=p["omega"], omega_relative_limit=p["omega_relative_limit"],
+              gain_omega=p["gain_omega"], gain_mu=p["gain_mu"],
+              num_symbols=max_symbols(y3.shape[1] + state.clock.tail.shape[-1], p["omega"],
+                                      p["omega_relative_limit"], p["gain_mu"]))
+    ck = state.clock
+    ms, (outs, counts, _) = cuda_ms(
+        torch, lambda: clock_ops.clock_mm_tpu(work, base_valid, ck.omega, ck.mu, ck.last_sample, ii0, **kw), 3)
+    res["b4_ms"] = ms
+    res["b4_bound"] = bound(*ragged_clock_cost(c, work.shape[1], outs.shape[1], int(counts.sum().item())))
+    res["b4_shape"] = f"{c} x {work.shape[1]}"
+    log(f"[main] (h) B4 alone at {res['b4_shape']} (channel-major): {ms:.4f} ms, bound "
+        f"{res['b4_bound'][0]:.4f} ms by {res['b4_bound'][1]}")
+    return res, total
+
+
+def ragged_clock_cost(c, w, k, symbols):
+    """(bytes, flops) of B4: the work buffer, n_valid, ii0, the state and
+    the bank read once, the symbol slots, counts and final state written
+    once; ~30 flops a symbol this run emitted."""
+    words = c * w + 5 * c + 129 * 8 + c * k + c + 4 * c
+    return 4 * words, 30 * symbols
+
 
 
 def tx_cost(rows, interp, lanes, k, packed):
@@ -996,6 +1362,23 @@ def tx_kernels(torch, dev, main, check_err):
              max_abs_err=max(check_err["tx"], err), ms=ms, plain_ms=plain_ms, bound_ms=b,
              bound_by=by, library_ms=None),
     ]
+
+
+def ragged_kernels(main, check_err):
+    """B4's row: its time alone at the ragged step's shape (path (h)), its
+    launches over the main paths, its plain version's time at the check
+    size (128 x 65536; at the main path's size it would take minutes)."""
+    rg, chk = main["ragged"], check_err["ragged"]
+    log(f"[kernels] clock_ragged (B4): {rg['b4_ms']:.4f} ms at {rg['b4_shape']} (bound "
+        f"{rg['b4_bound'][0]:.4f} ms); at the check size {json.dumps(chk)}; time-major over path "
+        f"(a)'s block {main['b4_b2'][0]:.4f} ms (bound {main['b4_b2'][1][0]:.4f} ms), equal to B2")
+    return [dict(
+        name="clock_ragged", route="cuda", source="sdrmodem_tpu_torch/csrc/clock.cu",
+        replaces="sdrmodem_tpu/ops/pallas_clock.py:104", launches=main["totals"]["clock_ragged"],
+        max_abs_err=max(v["max_abs_err"] for v in chk.values()), ms=rg["b4_ms"],
+        plain_ms=chk["channel-major"]["plain_ms"], plain_at="128 x 65536, the check size",
+        bound_ms=rg["b4_bound"][0], bound_by=rg["b4_bound"][1], library_ms=None,
+    )]
 
 
 def phase_kernels(torch, dev, main):
@@ -1149,7 +1532,8 @@ def main() -> int:
                          ("golden", lambda: phase_golden(torch, dev)),
                          ("main", lambda: phase_main(torch, dev)),
                          ("kernels", lambda: phase_kernels(torch, dev, done["main"])
-                          + tx_kernels(torch, dev, done["main"], done["check"]))):
+                          + tx_kernels(torch, dev, done["main"], done["check"])
+                          + ragged_kernels(done["main"], done["check"]))):
             t0 = time.perf_counter()
             done[name] = fn()
             log(f"[{name}] passed in {time.perf_counter() - t0:.3f} s")

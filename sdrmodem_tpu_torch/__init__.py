@@ -14,8 +14,11 @@ kernel wrapper runs its plain PyTorch version instead.
 
 __version__ = "0.1.0"
 
-from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig, FskDemodulator
 from sdrmodem_tpu_torch.dsp.gfsk_mod import GfskModConfig, GfskModulator
 from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
 
-__all__ = ["DemodPipeline", "FskDemodConfig", "GfskModConfig", "GfskModulator", "__version__"]
+__all__ = [
+    "DemodPipeline", "FskDemodConfig", "FskDemodulator", "GfskModConfig", "GfskModulator",
+    "__version__",
+]

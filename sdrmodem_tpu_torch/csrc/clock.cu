@@ -1,39 +1,43 @@
-// Mueller & Mueller clock recovery over one full block, every lane on its
-// own, in the chunk partition of the JAX package.
+// Mueller & Mueller clock recovery: the chunked full-block walk (B2) and
+// the ragged walk (B4), each lane on its own.  Both advance a lane with
+// mm_step.cuh's step, and this file is compiled with -fmad=false so no f32
+// multiply and add are contracted into an FMA, which would change the
+// chaotic M&M trajectory.
 //
-// Replaces the TPU kernel sdrmodem_tpu/ops/pallas_clock.py:_mm_chunked_kernel
-// (wrapper clock_mm_chunked_tpu).  The step is the reference's
-// (src/dsp/clock_recovery_mm.c:78-139) as sdrmodem_tpu/dsp/clock_recovery.py
-// :282-314 writes it: the 8-tap MMSE interpolator indexed by rint(mu * 128),
-// the branchless omega clip, floor(mu) strides, and the NaN branch (emit 0,
-// stride floor(omega), keep mu / omega / last).
+// B2 replaces the TPU kernel sdrmodem_tpu/ops/pallas_clock.py:
+// _mm_chunked_kernel (wrapper clock_mm_chunked_tpu): every lane over one
+// full block, in the chunk partition of the JAX package.
 //
-// Bound on an H100: at 128 lanes x 2^19 decimated samples it reads y3 once
-// (256 MiB) and writes the f32 symbol slots (~70 MB), ~0.1 ms of memory
-// traffic; the arithmetic is a few tens of operations a symbol.  What bounds
-// it is neither: each lane is one chain of ~105k dependent symbols (the
-// next read position depends on this symbol's floor(mu)), so its time is the
-// chain's length times one step's latency.
+// B4 replaces sdrmodem_tpu/ops/pallas_clock.py:_mm_kernel (wrapper
+// clock_mm_tpu): every lane over its own prepared buffer y from ii0, frozen
+// once ii > n_valid - 8, with y channel-major (C, L) or time-major (L, C).
+// The TPU kernel's one-hot window ladder and overflow flag, its Farrow
+// polynomial bank and its 1e30 NaN sentinel exist because the TPU's vector
+// unit has no gathers; this walk reads each lane's window directly and
+// indexes the bank table, so none of them is carried over.
+//
+// Bound on an H100: at 128 lanes x 2^19 decimated samples either walk
+// reads its input once (256 MiB) and writes the f32 symbol slots (~70 MB),
+// ~0.1 ms of memory traffic; the arithmetic is a few tens of operations a
+// symbol.  What bounds them is neither: each lane is one chain of ~105k
+// dependent symbols (the next read position depends on this symbol's
+// floor(mu)), so the time is the chain's length times one step's latency.
 //
 // Design: a plain first version.  One thread owns one lane for the whole
-// block and walks it in order with omega, mu, last and the read position in
-// registers; the 129x8 bank sits in shared memory.  The chunks of the JAX
-// kernel are kept as output rows only: a chunk closes when the read
+// buffer and walks it in order with omega, mu, last and the read position
+// in registers; the 129x8 bank sits in shared memory.  B2 keeps the chunks
+// of the JAX kernel as output rows only: a chunk closes when the read
 // position passes its end, which continues the stream exactly as the JAX
 // suffix hand-off does (clock_recovery.py:540-547), so one pass gives the
-// JAX symbols, counts and final resid.  Symbols are stored time-major,
-// (n_chunks, K, C), so neighbouring lanes store to neighbouring words.  The
-// file is compiled with -fmad=false so no f32 multiply and add are
-// contracted into an FMA, which would change the chaotic M&M trajectory.
+// JAX symbols, counts and final resid; its symbols are stored time-major,
+// (n_chunks, K, C).  B4 reads and writes through the strides it is given,
+// so in the time-major layout neighbouring lanes touch neighbouring words
+// and in the channel-major one each lane's reads are contiguous.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "mm_step.cuh"
 
 namespace {
 
-constexpr int kTaps = 8;
-constexpr int kSteps = 128;
-constexpr int kBankSize = (kSteps + 1) * kTaps;
 constexpr int kThreads = 32;
 
 __global__ void mm_clock_kernel(const float* __restrict__ y3, int n, int lanes,
@@ -43,23 +47,21 @@ __global__ void mm_clock_kernel(const float* __restrict__ y3, int n, int lanes,
                                 const float* __restrict__ last_in,
                                 const int* __restrict__ resid_in,
                                 const float* __restrict__ bank, int chunk,
-                                int n_chunks, int k_max, float omega_mid,
-                                float omega_lim, float gain_omega, float gain_mu,
+                                int n_chunks, int k_max, MmParams p,
                                 float* __restrict__ outs, int* __restrict__ counts,
                                 float* __restrict__ omega_out, float* __restrict__ mu_out,
                                 float* __restrict__ last_out, int* __restrict__ resid_out) {
-  __shared__ float s_bank[kBankSize];
-  for (int j = threadIdx.x; j < kBankSize; j += blockDim.x) s_bank[j] = bank[j];
-  __syncthreads();
+  __shared__ float s_bank[kMmBankSize];
+  mm_load_bank(s_bank, bank);
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
-  float omega = omega_in[lane];
-  float mu = mu_in[lane];
-  float last = last_in[lane];
   // read position in the stream [suffix | y3]
-  long long ii = (long long)sfx - resid_in[lane];
+  MmLane s{omega_in[lane], mu_in[lane], last_in[lane], (long long)sfx - resid_in[lane]};
   const long long total = (long long)sfx + n;
+  auto sample = [&](long long row) {
+    return row < sfx ? suffix[row * lanes + lane] : y3[(row - sfx) * lanes + lane];
+  };
   int t = 0;    // current chunk
   int cnt = 0;  // symbols emitted in it
   long long end = sfx + min((long long)chunk, (long long)n);  // its end in the stream
@@ -67,8 +69,8 @@ __global__ void mm_clock_kernel(const float* __restrict__ y3, int n, int lanes,
   for (;;) {
     // close every chunk the read position has passed (or whose K slots are
     // full: the JAX hand-off then clips the carried resid to sfx - 1)
-    while (t < n_chunks && (ii > end - kTaps || cnt >= k_max)) {
-      if (cnt >= k_max && ii < end - (sfx - 1)) ii = end - (sfx - 1);
+    while (t < n_chunks && (s.ii > end - kMmTaps || cnt >= k_max)) {
+      if (cnt >= k_max && s.ii < end - (sfx - 1)) s.ii = end - (sfx - 1);
       counts[(long long)t * lanes + lane] = cnt;
       for (int k = cnt; k < k_max; ++k) outs[((long long)t * k_max + k) * lanes + lane] = 0.f;
       ++t;
@@ -76,47 +78,49 @@ __global__ void mm_clock_kernel(const float* __restrict__ y3, int n, int lanes,
       end = sfx + min((long long)(t + 1) * chunk, (long long)n);
     }
     if (t == n_chunks) break;
-
-    int imu = (int)rintf(mu * (float)kSteps);
-    imu = min(max(imu, 0), kSteps);
-    const float* taps = s_bank + imu * kTaps;
-    const long long base = ii < 0 ? 0 : ii;
-    float y = 0.f;
-    for (int j = 0; j < kTaps; ++j) {
-      const long long row = base + j;
-      const float v = row < sfx ? suffix[row * lanes + lane] : y3[(row - sfx) * lanes + lane];
-      y = j == 0 ? v * taps[0] : y + v * taps[j];
-    }
-
-    const bool is_nan = isnan(y);
-    const float out = is_nan ? 0.f : y;
-    const float sgn_last = last < 0.f ? -1.f : 1.f;
-    const float sgn_out = out < 0.f ? -1.f : 1.f;
-    const float mm = sgn_last * out - sgn_out * last;
-    float omega_n = omega + gain_omega * mm;
-    const float dev = omega_n - omega_mid;
-    omega_n = omega_mid + 0.5f * (fabsf(dev + omega_lim) - fabsf(dev - omega_lim));
-    float mu_n = mu + omega_n + gain_mu * mm;
-    const float stride = floorf(mu_n);
-    mu_n = mu_n - stride;
-
-    outs[((long long)t * k_max + cnt) * lanes + lane] = out;
+    outs[((long long)t * k_max + cnt) * lanes + lane] = mm_step(s_bank, p, s, sample);
     ++cnt;
-    if (is_nan) {
-      ii += (long long)floorf(omega);
-    } else {
-      omega = omega_n;
-      mu = mu_n;
-      last = out;
-      ii += (long long)stride;
-    }
   }
 
-  omega_out[lane] = omega;
-  mu_out[lane] = mu;
-  last_out[lane] = last;
-  const long long resid = total - ii;
+  omega_out[lane] = s.omega;
+  mu_out[lane] = s.mu;
+  last_out[lane] = s.last;
+  const long long resid = total - s.ii;
   resid_out[lane] = (int)(resid < sfx - 1 ? resid : sfx - 1);
+}
+
+// B4: lane l reads y[row * row_stride + l * lane_stride] for row < len
+// (rows past it read as 0) and writes symbol k to
+// outs[k * out_k_stride + l * out_lane_stride].
+__global__ void mm_ragged_kernel(const float* __restrict__ y, long long len, int lanes,
+                                 long long row_stride, long long lane_stride,
+                                 const int* __restrict__ n_valid, const int* __restrict__ ii0,
+                                 const float* __restrict__ omega_in,
+                                 const float* __restrict__ mu_in,
+                                 const float* __restrict__ last_in,
+                                 const float* __restrict__ bank, int num_symbols, int k_out,
+                                 long long out_k_stride, long long out_lane_stride, MmParams p,
+                                 float* __restrict__ outs, int* __restrict__ counts,
+                                 float* __restrict__ omega_out, float* __restrict__ mu_out,
+                                 float* __restrict__ last_out, int* __restrict__ ii_out) {
+  __shared__ float s_bank[kMmBankSize];
+  mm_load_bank(s_bank, bank);
+
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  const float* yl = y + lane * lane_stride;
+  float* ol = outs + lane * out_lane_stride;
+  const long long last_row = (long long)n_valid[lane] - kMmTaps;  // the lane freezes past it
+  MmLane s{omega_in[lane], mu_in[lane], last_in[lane], (long long)ii0[lane]};
+  auto sample = [&](long long row) { return row < len ? yl[row * row_stride] : 0.f; };
+  int k = 0;
+  for (; k < num_symbols && s.ii <= last_row; ++k) ol[k * out_k_stride] = mm_step(s_bank, p, s, sample);
+  counts[lane] = k;
+  for (int j = k; j < k_out; ++j) ol[j * out_k_stride] = 0.f;
+  omega_out[lane] = s.omega;
+  mu_out[lane] = s.mu;
+  last_out[lane] = s.last;
+  ii_out[lane] = (int)s.ii;
 }
 
 }  // namespace
@@ -138,9 +142,32 @@ extern "C" int clock_forward(const float* y3, int n, int lanes, const float* suf
                              void* stream_handle) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   const int grid = (lanes + kThreads - 1) / kThreads;
+  const MmParams p{omega_mid, omega_lim, gain_omega, gain_mu};
   mm_clock_kernel<<<grid, kThreads, 0, stream>>>(
       y3, n, lanes, suffix, sfx, omega_in, mu_in, last_in, resid_in, bank, chunk,
-      n_chunks, k_max, omega_mid, omega_lim, gain_omega, gain_mu, outs, counts,
-      omega_out, mu_out, last_out, resid_out);
+      n_chunks, k_max, p, outs, counts, omega_out, mu_out, last_out, resid_out);
+  return cudaGetLastError();
+}
+
+// B4 over y with per-lane n_valid, ii0, omega, mu and last (C,); at most
+// num_symbols steps a lane, k_out >= num_symbols symbol slots.  Writes outs,
+// counts (C,) and the final omega, mu, last and read position (C,).
+// Returns cudaGetLastError() after the launch.
+extern "C" int clock_ragged_forward(const float* y, long long len, int lanes,
+                                    long long row_stride, long long lane_stride,
+                                    const int* n_valid, const int* ii0, const float* omega_in,
+                                    const float* mu_in, const float* last_in, const float* bank,
+                                    int num_symbols, int k_out, long long out_k_stride,
+                                    long long out_lane_stride, float omega_mid, float omega_lim,
+                                    float gain_omega, float gain_mu, float* outs, int* counts,
+                                    float* omega_out, float* mu_out, float* last_out,
+                                    int* ii_out, void* stream_handle) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  const int grid = (lanes + kThreads - 1) / kThreads;
+  const MmParams p{omega_mid, omega_lim, gain_omega, gain_mu};
+  mm_ragged_kernel<<<grid, kThreads, 0, stream>>>(
+      y, len, lanes, row_stride, lane_stride, n_valid, ii0, omega_in, mu_in, last_in, bank,
+      num_symbols, k_out, out_k_stride, out_lane_stride, p, outs, counts, omega_out, mu_out,
+      last_out, ii_out);
   return cudaGetLastError();
 }

@@ -1,13 +1,18 @@
 // Time-major strided FIR, shared by the front end (front.cu, B1) and the
-// standalone FIR (fir.cu, B3 and its fir_tpu face B8), so every FIR of
-// either front is the same device code in the same order and the fused and
-// banded fronts agree bit for bit.
+// standalone FIRs (fir.cu: B3, its fir_tpu face B8, and the exact FIR), so
+// every FIR of either front is the same device code in the same order and
+// the fused and banded fronts agree bit for bit.
 //
 // One thread per (output row, lane), neighbouring threads on neighbouring
-// lanes so every load is coalesced, taps in shared memory and one fmaf per
-// tap in tap order.  The carried history is read through its own pointer,
-// so [history | block] is never copied.  Each FMA waits on a load from L1,
-// so the kernel runs at the load rate, not the FMA rate.
+// lanes so every load is coalesced, taps in shared memory and one
+// multiply-add per tap in tap order into an accumulator of type Acc:
+//   - float: fmaf, one rounding a tap (the front's FIRs and B3);
+//   - double: fma in float64, where the product of two float32 values is
+//     exact, so each tap rounds once whether or not it is fused, and the
+//     sum rounds once to float32 at the end (the exact FIR).
+// The carried history is read through its own pointer, so [history |
+// block] is never copied.  Each multiply-add waits on a load from L1, so
+// the kernel runs at the load rate, not the FMA rate.
 
 #pragma once
 
@@ -18,8 +23,15 @@ namespace {
 constexpr int kLanesPerBlock = 32;
 constexpr int kRowsPerBlock = 8;
 
+__device__ __forceinline__ float fir_mac(float tap, float x, float acc) { return fmaf(tap, x, acc); }
+
+__device__ __forceinline__ double fir_mac(float tap, float x, double acc) {
+  return fma((double)tap, (double)x, acc);
+}
+
 // y[k, l] = sum_j taps[j] * work[k * stride + j, l], work = [hist | x]
 // (hist has ntaps - 1 rows).  rev_taps are the filter taps reversed.
+template <typename Acc>
 __global__ void fir_tm_kernel(const float* __restrict__ hist,
                               const float* __restrict__ x, int lanes,
                               const float* __restrict__ rev_taps, int ntaps,
@@ -35,25 +47,26 @@ __global__ void fir_tm_kernel(const float* __restrict__ hist,
   const long long hist_rows = ntaps - 1;
   const long long r0 = k * stride;  // first row of [hist | x] under the window
   const int j_hist = (int)(r0 >= hist_rows ? 0 : min((long long)ntaps, hist_rows - r0));
-  float acc = 0.f;
+  Acc acc = 0;
   if (j_hist > 0) {
     const float* hp = hist + r0 * lanes + lane;
-    for (int j = 0; j < j_hist; ++j, hp += lanes) acc = fmaf(s_taps[j], *hp, acc);
+    for (int j = 0; j < j_hist; ++j, hp += lanes) acc = fir_mac(s_taps[j], *hp, acc);
   }
   if (j_hist < ntaps) {
     const float* xp = x + (r0 + j_hist - hist_rows) * lanes + lane;
-    for (int j = j_hist; j < ntaps; ++j, xp += lanes) acc = fmaf(s_taps[j], *xp, acc);
+    for (int j = j_hist; j < ntaps; ++j, xp += lanes) acc = fir_mac(s_taps[j], *xp, acc);
   }
-  y[k * lanes + lane] = acc;
+  y[k * lanes + lane] = (float)acc;
 }
 
+template <typename Acc = float>
 cudaError_t launch_fir(const float* hist, const float* x, int lanes,
                        const float* rev_taps, int ntaps, int stride, int n_out,
                        float* y, cudaStream_t stream) {
   const dim3 block(kLanesPerBlock, kRowsPerBlock);
   const dim3 grid((n_out + kRowsPerBlock - 1) / kRowsPerBlock,
                   (lanes + kLanesPerBlock - 1) / kLanesPerBlock);
-  fir_tm_kernel<<<grid, block, ntaps * sizeof(float), stream>>>(
+  fir_tm_kernel<Acc><<<grid, block, ntaps * sizeof(float), stream>>>(
       hist, x, lanes, rev_taps, ntaps, stride, n_out, y);
   return cudaGetLastError();
 }

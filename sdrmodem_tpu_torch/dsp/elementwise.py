@@ -6,7 +6,11 @@ Counterpart of ``sdrmodem_tpu/dsp/elementwise.py:28-69, 258-280, 347-388``:
                           (src/math/fast_atan2f.c:87-150), a real table
                           gather: the GPU has gathers, so the JAX package's
                           gather-free polynomial variants are not ported;
-- ``dc_blocker_length`` / ``dc_blocker_taps``
+- ``atan2_dispatch``    — the quad demod's arctangent by mode
+                          (``elementwise.py:207-232``);
+- ``quad_demod_stream`` — the FM discriminator (reference
+                          src/dsp/quadrature_demod.c:57-73);
+- ``dc_blocker_length`` / ``dc_blocker_taps`` / ``dc_blocker_stream``
                         — the 4-stage moving-average DC blocker
                           (src/dsp/dc_blocker.c:56-119) as one causal FIR;
 - ``nco_steps`` / ``nco_mix_pair_tm``
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from sdrmodem_tpu_torch.dsp import taps as taps_mod
+from sdrmodem_tpu_torch.dsp.fir import fir_stream
 from sdrmodem_tpu_torch.ops._build import resolve_device
 
 _PI = float(np.float32(np.pi))
@@ -90,6 +95,65 @@ def fast_atan2(
     return torch.where(both_zero, torch.zeros_like(angle), angle)
 
 
+LUT_MODES = (True, "lut", "free")
+ATAN2_MODES = (False, "atan2")
+
+
+def is_lut_mode(mode) -> bool:
+    """Whether the arctangent ``mode`` is the reference LUT; raise for a
+    mode the port does not take.
+
+    True, "lut" and "free" are the reference LUT ("free" is the TPU's
+    gather-free evaluation of the same table; the port keeps the gather);
+    False and "atan2" are ``torch.atan2`` with the LUT's (0, 0) -> 0 rule.
+    The JAX package's profiling mode "null" (deliberately not an
+    arctangent) and its in-kernel forms are not ported."""
+    for modes, lut in ((LUT_MODES, True), (ATAN2_MODES, False)):
+        if any(mode is m if isinstance(m, bool) else mode == m for m in modes):
+            return lut
+    raise ValueError(
+        f"arctangent mode {mode!r}: the port takes True/'lut'/'free' (the reference LUT) "
+        "or False/'atan2'"
+    )
+
+
+def atan2_dispatch(im: torch.Tensor, re: torch.Tensor, mode, table: torch.Tensor | None = None):
+    """The quad demod's arctangent of im / re in ``mode`` (``is_lut_mode``)."""
+    if is_lut_mode(mode):
+        return fast_atan2(im, re, table)
+    both_zero = ~((im.abs() > 0) | (re.abs() > 0))
+    return torch.where(both_zero, torch.zeros((), device=im.device), torch.atan2(im, re))
+
+
+def conj_product(xr, xi, sr, si):
+    """(re, im) of x * conj(s), float32, each part one fused multiply-add:
+    re = fma(xr, sr, xi*si), im = fma(xi, sr, -(xr*si)), the rounding of
+    the JAX package's conjugate products on the CPU (XLA contracts them;
+    checked bit for bit on the lucky7 capture).  Taken in float64, where the
+    product of two float32 is exact, and rounded once to float32: fmaf's
+    result barring a tie of the double rounding, the same on the CPU and
+    the card.  The lucky7_nodc fixture's clock lock turns on these bits
+    (ROADMAP §C)."""
+    re = (xr.double() * sr.double() + (xi * si).double()).float()
+    im = (xi.double() * sr.double() - (xr * si).double()).float()
+    return re, im
+
+
+def quad_demod_stream(
+    x: torch.Tensor, gain: float, prev: torch.Tensor | None = None, *, use_lut=True
+) -> torch.Tensor:
+    """FM discriminator y[n] = gain * arg(x[n] * conj(x[n-1])) over complex
+    x (..., N); ``prev`` is the carried sample (0 by default, the
+    reference's fresh state, so y[0] = 0)."""
+    if prev is None:
+        prev = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
+    else:
+        prev = torch.as_tensor(prev, dtype=x.dtype, device=x.device).expand(x.shape[:-1] + (1,))
+    shifted = torch.cat([prev, x[..., :-1]], dim=-1)
+    re, im = conj_product(x.real, x.imag, shifted.real, shifted.imag)
+    return float(np.float32(gain)) * atan2_dispatch(im, re, use_lut)
+
+
 def dc_blocker_length(sps: float) -> int:
     """Reference DC blocker length: ceil(sps * 32) (src/dsp/fsk_demod.c:56)."""
     return int(np.ceil(np.float32(sps) * 32))
@@ -110,6 +174,11 @@ def dc_blocker_taps(length: int) -> np.ndarray:
     taps = -k
     taps[2 * (length - 1)] += 1.0
     return taps.astype(np.float32)
+
+
+def dc_blocker_stream(x: torch.Tensor, length: int) -> torch.Tensor:
+    """The DC blocker over a whole stream from a zero state."""
+    return fir_stream(x, dc_blocker_taps(length), 1)
 
 
 def nco_steps(adjs: torch.Tensor) -> torch.Tensor:

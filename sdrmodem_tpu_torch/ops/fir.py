@@ -10,13 +10,18 @@ Counterpart of ``sdrmodem_tpu/ops/pallas_fir.py``:
 - ``fir_tpu`` (B8, ``pallas_fir.py:311``): a fresh-filter FIR (T - 1
   leading zeros, ceil(N/d) output rows), the same kernel behind another
   face, with its own launch count.
+- ``conv1d_exact_tm``: the same FIR with a float64 accumulator rounded
+  once to float32, the exact mode's FIR (``sdrmodem_tpu/dsp/fir.py:conv1d``
+  with ``exact=True``, an XLA convolution there), with its own launch count.
 
-Both launch ``csrc/fir.cu`` for a CUDA tensor and run the plain version
+All launch ``csrc/fir.cu`` for a CUDA tensor and run the plain version
 for a CPU tensor.  ``conv1d_banded_tm_plain`` sums as the kernel does: one
 fused multiply-add a tap, in tap order, each taken in float64 (where the
 product of two float32 is exact) and rounded once to float32, which is
 fmaf's result barring a tie of the double rounding.  The front end's FIRs
-(``ops/front.py``) are this function too.
+(``ops/front.py``) are this function too.  ``conv1d_exact_tm_plain`` keeps
+the sum in float64 in tap order, as the kernel does, so the two agree bit
+for bit.
 """
 
 from __future__ import annotations
@@ -30,16 +35,16 @@ from sdrmodem_tpu_torch.ops import _build
 
 launches = 0  # fir kernels launched by conv1d_banded_tm; a run resets and reads it
 fir_tpu_launches = 0  # fir kernels launched by fir_tpu
+exact_launches = 0  # float64-accumulated fir kernels launched by conv1d_exact_tm
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
-    "fir_tm_forward": [
-        _P, _I, _P, _I,  # x_tm, lanes, rev taps, ntaps
-        _I, _I, _I, _P,  # stride, col_offset, n_out, y
-        _P,  # stream
-    ]
-}
+_FIR_ARGS = [
+    _P, _I, _P, _I,  # x_tm, lanes, rev taps, ntaps
+    _I, _I, _I, _P,  # stride, col_offset, n_out, y
+    _P,  # stream
+]
+_SIGNATURES = {"fir_tm_forward": _FIR_ARGS, "fir_exact_tm_forward": _FIR_ARGS}
 
 
 def _padded(x_tm: torch.Tensor, rows: int) -> torch.Tensor:
@@ -61,19 +66,30 @@ def _check_shape(x_tm, rev_taps, stride, n_out, col_offset):
         raise ValueError(f"fir: stride {stride} and n_out {n_out} must be >= 1, col_offset >= 0")
 
 
-def conv1d_banded_tm_plain(x_tm, rev_taps, stride: int, n_out: int, *, col_offset: int = 0):
-    """Plain PyTorch strided FIR: (R, L) float32 -> (n_out, L) float32."""
+def _plain(x_tm, rev_taps, stride, n_out, col_offset, acc_dtype):
+    """Tap-order FIR through float64, the sum kept in ``acc_dtype``."""
     _check_shape(x_tm, rev_taps, stride, n_out, col_offset)
     t = rev_taps.numel()
     span = (n_out - 1) * stride + 1
     work = _padded(x_tm, col_offset + span + t - 1)[col_offset:].double()
-    acc = torch.zeros((n_out, x_tm.shape[1]), dtype=torch.float32, device=x_tm.device)
+    acc = torch.zeros((n_out, x_tm.shape[1]), dtype=acc_dtype, device=x_tm.device)
     for j, tap in enumerate(rev_taps.double().tolist()):
-        acc = torch.add(acc, work[j : j + span : stride], alpha=tap).float()
-    return acc
+        acc = torch.add(acc, work[j : j + span : stride], alpha=tap).to(acc_dtype)
+    return acc.float()
 
 
-def _fir_cuda(x_tm, rev_taps, stride, n_out, col_offset):
+def conv1d_banded_tm_plain(x_tm, rev_taps, stride: int, n_out: int, *, col_offset: int = 0):
+    """Plain PyTorch strided FIR: (R, L) float32 -> (n_out, L) float32."""
+    return _plain(x_tm, rev_taps, stride, n_out, col_offset, torch.float32)
+
+
+def conv1d_exact_tm_plain(x_tm, rev_taps, stride: int, n_out: int, *, col_offset: int = 0):
+    """Plain version of ``conv1d_exact_tm``: the sum in float64, in tap
+    order, rounded once to float32."""
+    return _plain(x_tm, rev_taps, stride, n_out, col_offset, torch.float64)
+
+
+def _fir_cuda(x_tm, rev_taps, stride, n_out, col_offset, entry="fir_tm_forward"):
     _check_shape(x_tm, rev_taps, stride, n_out, col_offset)
     dev = x_tm.device
     t = rev_taps.numel()
@@ -85,11 +101,11 @@ def _fir_cuda(x_tm, rev_taps, stride, n_out, col_offset):
     lib = _build.load("fir", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fir_tm_forward(
+        rc = getattr(lib, entry)(
             x_tm.data_ptr(), lanes, rev_taps.data_ptr(), t,
             stride, col_offset, n_out, y.data_ptr(), stream,
         )
-    _build.check(lib, rc, "fir_tm_forward")
+    _build.check(lib, rc, entry)
     return y
 
 
@@ -102,6 +118,18 @@ def conv1d_banded_tm(x_tm, rev_taps, stride: int, n_out: int, *, col_offset: int
         return conv1d_banded_tm_plain(x_tm, rev_taps, stride, n_out, col_offset=col_offset)
     y = _fir_cuda(x_tm, rev_taps, stride, n_out, col_offset)
     launches += 1
+    return y
+
+
+def conv1d_exact_tm(x_tm, rev_taps, stride: int, n_out: int, *, col_offset: int = 0):
+    """``conv1d_banded_tm``'s FIR with a float64 accumulator, rounded once
+    to float32: the float64 kernel for a CUDA tensor, the plain version for
+    a CPU tensor.  Returns (n_out, L) float32."""
+    global exact_launches
+    if _build.device_kind(x_tm, "conv1d_exact_tm") == "cpu":
+        return conv1d_exact_tm_plain(x_tm, rev_taps, stride, n_out, col_offset=col_offset)
+    y = _fir_cuda(x_tm, rev_taps, stride, n_out, col_offset, "fir_exact_tm_forward")
+    exact_launches += 1
     return y
 
 

@@ -1,11 +1,19 @@
-"""Carry a full-block demodulator state between the JAX package and the port.
+"""Carry demodulator states between the JAX package and the port.
 
-The JAX ``DemodStateFull`` and Doppler tables pad their lanes to a
-multiple of 128 (I lanes in [0, Cp), Q lanes in [Cp, 2Cp)); the port keeps
-exactly C lanes.  These functions take and give numpy arrays in the JAX
-layout, so neither side needs the other's framework.  Like the pipeline,
-they put tensors on the CUDA device unless given ``device="cpu"``, and
-raise where there is no card.
+- ``state_from_numpy`` / ``state_to_numpy``: the ragged ``DemodState`` of
+  the streamer and ``make_batched_step``, one stream or leaves led by C.
+  Both packages keep the same leaves in the same layout, so the crossing
+  is a copy; the clock's tail capacity is ``tail_cap_for(omega)`` on both
+  sides.
+- ``full_state_from_numpy`` / ``full_state_to_numpy``: the full-block
+  ``DemodStateFull``.  The JAX state and Doppler tables pad their lanes to
+  a multiple of 128 (I lanes in [0, Cp), Q lanes in [Cp, 2Cp)); the port
+  keeps exactly C lanes.
+
+These functions take and give numpy arrays in the JAX layout, so neither
+side needs the other's framework.  Like the pipeline, they put tensors on
+the CUDA device unless given ``device="cpu"``, and raise where there is no
+card.
 """
 
 from __future__ import annotations
@@ -15,8 +23,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sdrmodem_tpu_torch.dsp.clock_recovery import ClockFullState
-from sdrmodem_tpu_torch.dsp.pipeline import DemodStateFull
+from sdrmodem_tpu_torch.dsp.clock_recovery import ClockFullState, ClockState
+from sdrmodem_tpu_torch.dsp.pipeline import DemodState, DemodStateFull, FirRaggedState
 from sdrmodem_tpu_torch.ops._build import resolve_device
 
 LANES = 128  # the JAX package's lane multiple
@@ -43,6 +51,39 @@ def _iq_lanes(a: np.ndarray, channels: int) -> np.ndarray:
     """(rows, 2Cp) I|Q lanes -> (rows, 2C)."""
     cp = a.shape[1] // 2
     return np.concatenate([a[:, :channels], a[:, cp : cp + channels]], axis=1)
+
+
+def state_from_numpy(state, device=None) -> DemodState:
+    """A ragged ``DemodState`` with numpy leaves (the JAX streamer's state,
+    or a batched one with leaves led by C) as the port's, on ``device``
+    (default CUDA)."""
+    device = resolve_device(device)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+    def fir(f):
+        return None if f is None else FirRaggedState(t(f.hist), t(f.hist_len, torch.int32))
+
+    ck = state.clock
+    return DemodState(
+        lpf1=fir(state.lpf1),
+        quad_prev=t(state.quad_prev),
+        lpf2=fir(state.lpf2),
+        dc=fir(state.dc),
+        clock=ClockState(
+            t(ck.omega), t(ck.mu), t(ck.last_sample), t(ck.tail), t(ck.tail_len, torch.int32)
+        ),
+    )
+
+
+def state_to_numpy(state: DemodState):
+    """The port's ragged state as the same tree with numpy leaves."""
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return type(state)(*(state_to_numpy(v) for v in state))
+    return state.detach().cpu().numpy()
 
 
 def full_state_from_numpy(state, channels: int, device=None) -> DemodStateFull:

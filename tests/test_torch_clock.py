@@ -39,6 +39,7 @@ from sdrmodem_tpu_torch.dsp.taps import mmse_interp_taps
 from sdrmodem_tpu_torch.ops import clock as clock_ops
 from sdrmodem_tpu_torch.ops import front as front_ops
 from sdrmodem_tpu_torch.utils.parity import golden_report
+from tests.test_torch_fir import one_thread  # noqa: F401 (torch on one thread)
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 LUCKY7 = (48000, 4800, 5000, 2, 2000, True)

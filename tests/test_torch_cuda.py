@@ -16,14 +16,17 @@ order and neither contracts a multiply and an add.  The fused and banded
 fronts run the same kernels in the same order: bit for bit.  The TX
 kernels (B5, B6) within 1e-4 of their plain versions on I/Q and the phase
 (both carry the phase prefix in float64, summed in another order, and
-take cos/sin from two libraries), the exported history exact.
+take cos/sin from two libraries), the exported history exact.  The ragged
+clock (B4) and the float64-accumulated FIR are exact: the same operations
+in the same order.  The exact streamer on the card gives the bytes it
+gives on the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from sdrmodem_tpu_torch.dsp.clock_recovery import chunk_plan, clock_mm_batched_full
+from sdrmodem_tpu_torch.dsp.clock_recovery import chunk_plan, clock_mm_batched_full, mm_params
 from sdrmodem_tpu_torch.dsp.doppler import Doppler
 from sdrmodem_tpu_torch.dsp.gfsk_mod import GfskModConfig, GfskModulator
 from sdrmodem_tpu_torch.dsp.streaming import StreamingGfskMod
@@ -267,3 +270,98 @@ def test_streaming_mod_on_card_launches_b5(cuda):
     assert got.shape == want.shape == (40000 * 8 * 2,)
     assert np.abs(got - want).max() < TX_ATOL
     assert _phase_gap(card.phase, host.phase) < TX_ATOL and np.array_equal(card.hist, host.hist)
+
+
+def _b4_args(c, n, device, seed):
+    """A noisy two-level signal at sps 4.8 with a NaN stretch on lane 1,
+    ragged n_valid and read starts."""
+    rng = np.random.default_rng(seed)
+    bits = np.repeat(rng.choice([-1.0, 1.0], (c, n // 4 + 8)), 5, axis=1)[:, :n]
+    y = (bits + 0.2 * rng.standard_normal((c, n))).astype(np.float32)
+    y[1, 700:740] = np.nan
+    n_valid = np.full(c, n, np.int32)
+    n_valid[::3] = n - rng.integers(1, 900, len(n_valid[::3]))
+    ii0 = rng.integers(0, 9, c).astype(np.int32)
+    p = mm_params(4.8)
+    st = [torch.full((c,), p["omega"]), torch.full((c,), p["mu"]), torch.zeros(c)]
+    args = [torch.from_numpy(n_valid), *st, torch.from_numpy(ii0)]
+    kw = dict(omega_mid=p["omega"], omega_relative_limit=p["omega_relative_limit"],
+              gain_omega=p["gain_omega"], gain_mu=p["gain_mu"], num_symbols=n // 4 + 2)
+    return y, [a.to(device) for a in args], kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("time_major", [False, True])
+def test_b4_kernel_matches_plain(cuda, time_major):
+    c, n = 37, 6000
+    y, args, kw = _b4_args(c, n, cuda, 3)
+    yt = torch.from_numpy(y.T.copy() if time_major else y).to(cuda)
+    n0 = clock_ops.ragged_launches
+    outs, counts, fin = clock_ops.clock_mm_tpu(yt, *args, time_major=time_major, **kw)
+    assert clock_ops.ragged_launches == n0 + 1
+    p_outs, p_counts, p_fin = clock_ops.clock_mm_tpu_plain(yt, *args, time_major=time_major, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(outs, p_outs) and torch.equal(counts, p_counts)
+    for key in ("omega", "mu", "last", "ii", "overflow"):
+        assert torch.equal(fin[key], p_fin[key])
+    assert counts.min() > 1000 and (outs[1, 140:160] == 0).any()
+
+
+@pytest.mark.cuda
+def test_full_scan_backend_on_card_equals_b2(cuda):
+    """clock_mm_batched_full through B4 chunk by chunk equals B2."""
+    c, block = 5, 8192
+    pipe = DemodPipeline(FskDemodConfig(*CONFIGS["lucky7"]), block, device=cuda)
+    p = pipe.config.clock_params()
+    rng = np.random.default_rng(4)
+    st = {b: pipe.init_full_state(c).clock for b in ("pallas", "scan")}
+    for _ in range(2):
+        y3 = torch.from_numpy(np.sign(rng.standard_normal((block // 2, c))).astype(np.float32)).to(cuda)
+        n0 = (clock_ops.launches, clock_ops.ragged_launches)
+        res = {}
+        for b in st:
+            o, cnt, st[b] = clock_mm_batched_full(y3, st[b], bank=pipe.bank, backend=b, **p)
+            res[b] = (o, cnt)
+        assert (clock_ops.launches, clock_ops.ragged_launches) == (n0[0] + 1, n0[1] + 2)
+        assert torch.equal(res["pallas"][0], res["scan"][0])
+        assert torch.equal(res["pallas"][1], res["scan"][1])
+        for a, b in zip(st["pallas"], st["scan"]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,stride,lanes", [(157, 1, 2), (57, 2, 1), (637, 1, 1), (637, 2, 130)])
+def test_exact_fir_kernel_matches_plain(cuda, t, stride, lanes):
+    rng = np.random.default_rng(t + lanes)
+    rev = torch.from_numpy(rng.standard_normal(t).astype(np.float32) / t).to(cuda)
+    n_out = 3000
+    rows = (n_out - 1) * stride + t - 9  # the last windows run off the end
+    x = torch.from_numpy(rng.standard_normal((rows, lanes)).astype(np.float32)).to(cuda)
+    n0 = fir_ops.exact_launches
+    y = fir_ops.conv1d_exact_tm(x, rev, stride, n_out)
+    assert fir_ops.exact_launches == n0 + 1
+    y_p = fir_ops.conv1d_exact_tm_plain(x, rev, stride, n_out)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lucky7", "nan"])
+def test_exact_streamer_card_equals_cpu(cuda, name):
+    import pathlib
+
+    from sdrmodem_tpu_torch.utils.parity import GOLDEN_CASES, golden_report
+
+    _, cfg, fin, fexp, _ = next(c for c in GOLDEN_CASES if c[0] == name)
+    fixtures = pathlib.Path(__file__).resolve().parent / "fixtures"
+    iq = np.fromfile(fixtures / fin, np.complex64)
+    n0 = (clock_ops.ragged_launches, fir_ops.exact_launches, front_ops.launches, clock_ops.launches)
+    card = DemodPipeline(cfg, 8192, exact=True, device=cuda).streamer().process(iq)
+    blocks = -(-len(iq) // 8192)
+    n_fir = 3 if cfg.use_dc_block else 2
+    assert clock_ops.ragged_launches == n0[0] + blocks
+    assert fir_ops.exact_launches == n0[1] + blocks * n_fir  # LPF1 takes I and Q as two lanes
+    assert (front_ops.launches, clock_ops.launches) == n0[2:]
+    host = DemodPipeline(cfg, 8192, exact=True, device="cpu").streamer().process(iq)
+    assert np.array_equal(card, host)
+    assert golden_report(card, np.fromfile(fixtures / fexp, np.int8))["max_lsb"] <= 2

@@ -26,6 +26,7 @@ from sdrmodem_tpu_torch.dsp.doppler import Doppler
 from sdrmodem_tpu_torch.dsp.elementwise import nco_mix_pair_tm
 from sdrmodem_tpu_torch.ops import front as front_ops
 from sdrmodem_tpu_torch.utils.convert import doppler_tables_from_numpy, segment_tables
+from tests.test_torch_fir import one_thread  # noqa: F401 (torch on one thread)
 
 TLE = [
     "LUCKY-7",

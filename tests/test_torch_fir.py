@@ -8,6 +8,11 @@ its B8 face) against the JAX package's Pallas kernels in interpret mode.
   float32-exact FIRs that sum the same products in another order.
 - ``fir_tpu`` vs JAX ``fir_tpu`` and ``fir_stream`` for decimations 1, 2
   and 4: atol 2e-5, the bound of tests/test_pallas.py.
+
+Torch runs on one thread here.  The plain FIR is hundreds of small torch
+ops, and on 8 threads each one is a parallel region: on a machine loaded
+by other test workers its threads wait on one another, and a 637-tap case
+took ~40 s instead of ~0.5.
 """
 
 import numpy as np
@@ -31,6 +36,16 @@ TAPS = {
     157: LUCKY7.lpf1_taps(),
     637: dc_blocker_taps(LUCKY7.dc_length),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one thread for the module (see the module's docstring);
+    the other port test modules import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("col_offset", [0, 99])

@@ -44,6 +44,7 @@ from sdrmodem_tpu_torch.utils.convert import (
     segment_tables,
 )
 from tests.test_torch_doppler import ARGS
+from tests.test_torch_fir import one_thread  # noqa: F401 (torch on one thread)
 
 CONFIGS = {
     "lucky7": (48000, 4800, 5000, 2, 2000, True),

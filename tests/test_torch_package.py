@@ -55,7 +55,9 @@ def test_import_pulls_in_no_jax():
         "from sdrmodem_tpu_torch.dsp import pipeline\n"
         "from sdrmodem_tpu_torch.utils import convert, parity\n"
         "from sdrmodem_tpu_torch.dsp import doppler, elementwise, fir, gfsk_mod, nco_host, streaming\n"
+        "from sdrmodem_tpu_torch.dsp import clock_recovery, fsk_demod\n"
         "from sdrmodem_tpu_torch.ops import fir, front, clock, tx\n"
+        "from sdrmodem_tpu_torch import FskDemodulator\n"
         "from sdrmodem_tpu_torch.orbit import observer, sdp4, sgp4, solar, timeutil, tle\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'sdrmodem_tpu.'))"
         " or m == 'sdrmodem_tpu']\n"
@@ -70,7 +72,8 @@ def test_sources_import_nothing_of_the_jax_package():
     for want in ("sdrmodem_tpu_torch/orbit/sgp4.py", "sdrmodem_tpu_torch/dsp/doppler.py",
                  "sdrmodem_tpu_torch/ops/fir.py", "sdrmodem_tpu_torch/dsp/gfsk_mod.py",
                  "sdrmodem_tpu_torch/dsp/streaming.py", "sdrmodem_tpu_torch/dsp/nco_host.py",
-                 "sdrmodem_tpu_torch/ops/tx.py"):
+                 "sdrmodem_tpu_torch/ops/tx.py", "sdrmodem_tpu_torch/dsp/fsk_demod.py",
+                 "sdrmodem_tpu_torch/dsp/clock_recovery.py", "sdrmodem_tpu_torch/dsp/pipeline.py"):
         assert want in names
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -186,3 +189,27 @@ def test_library_name_follows_sources(tmp_path, monkeypatch):
     assert _build.library_path("b") == b2
     (tmp_path / "extra.cuh").write_text("// new header")
     assert _build.library_path("b") != b2
+
+
+@pytest.mark.parametrize("channels", [None, 3])
+def test_ragged_state_conversion_round_trip(channels):
+    """The JAX streamer's DemodState, single or batched (leaves led by C),
+    carries into the port and back unchanged, with the tail capacity of
+    ``tail_cap_for(omega)``."""
+    from sdrmodem_tpu_torch.dsp.clock_recovery import tail_cap_for
+    from sdrmodem_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+
+    cfg = CONFIGS["nan"]  # sps 25: a tail capacity above the floor
+    jstate = jax.tree.map(np.asarray, JaxPipeline(JaxConfig(*cfg), 4096, exact=True).init_state())
+    if channels is not None:
+        rng = np.random.default_rng(channels)
+        jstate = jax.tree.map(
+            lambda a: (rng.integers(-9, 40, (channels,) + a.shape).astype(a.dtype) if a.dtype == np.int32
+                       else rng.standard_normal((channels,) + a.shape).astype(a.dtype)), jstate)
+    state = state_from_numpy(jstate, device="cpu")
+    ref = DemodPipeline(FskDemodConfig(*cfg), 4096, device="cpu").init_state(channels)
+    for got, want in zip(jax.tree.leaves(state), jax.tree.leaves(ref)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+    assert state.clock.tail.shape[-1] == tail_cap_for(FskDemodConfig(*cfg).sps) > 32
+    for a, b in zip(jax.tree.leaves(state_to_numpy(state)), jax.tree.leaves(jstate)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)

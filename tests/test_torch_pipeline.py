@@ -36,6 +36,7 @@ from sdrmodem_tpu_torch.utils.convert import (
 )
 from sdrmodem_tpu_torch.utils.parity import GOLDEN_CASES, demod_capture, golden_report
 from tests.test_torch_doppler import ARGS
+from tests.test_torch_fir import one_thread  # noqa: F401 (torch on one thread)
 
 LUCKY7 = (48000, 4800, 5000, 2, 2000, True)
 
@@ -224,26 +225,30 @@ def test_jax_state_hands_off_to_port_with_doppler(resources_dir, monkeypatch):
 
 
 def test_server_call_runs_on_the_port():
-    """``BatchedRxGroup``'s call (session.py:388-390) as written: the shared
-    (2, B) stream on 3 lanes, Doppler rows on lanes 0 and 2."""
+    """``BatchedRxGroup``'s pipeline and call as written (session.py:342,
+    388-390): ``DemodPipeline(cfg, block, exact=False, use_atan_lut="free")``
+    stepped with the shared (2, B) stream on 3 lanes, Doppler rows on lanes
+    0 and 2.  ``clock_backend="scan"`` gives the same bits."""
     block, c = 2048, 3
-    pipe = DemodPipeline(FskDemodConfig(*LUCKY7), block, device="cpu")
+    pipe = DemodPipeline(FskDemodConfig(*LUCKY7), block, exact=False, use_atan_lut="free", device="cpu")
     step = pipe.make_batched_step_full("pallas", doppler=True, layout="fanout")
+    scan = pipe.make_batched_step_full("scan", doppler=True, layout="fanout")
     plain = pipe.make_batched_step_full("pallas", layout="fanout")
     s_rows = Doppler.max_rows(block, ARGS["sampling_freq"])
     dops = {0: Doppler(**ARGS), 2: Doppler(**{**ARGS, "constant_offset": 1500})}
     x = torch.from_numpy(np.random.default_rng(9).standard_normal((2, block)).astype(np.float32))
-    state = state_p = pipe.init_full_state(c)
+    state = state_s = state_p = pipe.init_full_state(c)
     for _ in range(2):
         rows = {lane: d.device_segments(block, +1) for lane, d in dops.items()}
         dop = doppler_tables_from_numpy(segment_tables(rows, s_rows, c), c, device="cpu")
         state, sym, cnt = step(state, x, dop)
+        state_s, sym_s, cnt_s = scan(state_s, x, dop)
         state_p, sym_p, cnt_p = plain(state_p, x)
         assert sym.dtype == torch.int8 and sym.shape[:2] == cnt.shape == (c, 1)
+        assert torch.equal(sym, sym_s) and torch.equal(cnt, cnt_s)
+        assert all(torch.equal(a, b) for a, b in zip(state.clock, state_s.clock))
         assert torch.equal(sym[1], sym_p[1]) and torch.equal(cnt[1], cnt_p[1])
         assert not torch.equal(sym[0], sym[1]) and not torch.equal(sym[0], sym[2])
-    with pytest.raises(NotImplementedError, match="scan"):
-        pipe.make_batched_step_full("scan", doppler=True, layout="fanout")
     with pytest.raises(NotImplementedError, match="B7"):
         pipe.make_batched_step_full("pallas", front="step")
     with pytest.raises(ValueError, match="unknown front"):
@@ -251,3 +256,17 @@ def test_server_call_runs_on_the_port():
     with pytest.raises(ValueError, match="ends"):
         bad = (dop[0], dop[1][:, :2].contiguous(), dop[2], dop[3])
         step(state, x, bad)
+    cfg = FskDemodConfig(*LUCKY7)
+    with pytest.raises(ValueError, match="float32-only"):
+        DemodPipeline(cfg, block, exact=True, device="cpu").make_batched_step_full("pallas")
+    for mode in (False, "atan2"):
+        with pytest.raises(NotImplementedError, match="LUT arctangent only"):
+            DemodPipeline(cfg, block, use_atan_lut=mode, device="cpu").make_batched_step_full()
+    with pytest.raises(ValueError, match="arctangent mode 'null'"):
+        DemodPipeline(cfg, block, use_atan_lut="null", device="cpu")
+    # the ragged path takes any block; the full-block path needs block % d == 0
+    odd = DemodPipeline(cfg, 1001, device="cpu")
+    assert odd.streamer().process(np.zeros(1500, np.complex64)).dtype == np.int8
+    for make in (odd.init_full_state, lambda c: odd.make_batched_step_full()):
+        with pytest.raises(ValueError, match="block % decimation"):
+            make(2)

@@ -58,6 +58,7 @@ from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
 from sdrmodem_tpu_torch.dsp.streaming import StreamingGfskMod
 from sdrmodem_tpu_torch.ops import tx as tx_ops
 from sdrmodem_tpu_torch.utils.parity import demod_capture
+from tests.test_torch_fir import one_thread  # noqa: F401 (torch on one thread)
 
 PERF_FS, PLUTO_FS = 19200, 576000  # I = 2 (tools/perf.py:4) and I = 60 (tests/test_server.py:316)
 CFG = (PERF_FS, 9600, 5000)
