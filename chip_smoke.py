@@ -23,7 +23,9 @@ Phases (any failure exits non-zero, and no result line is printed):
              stretch, ragged n_valid and read starts) and the float64 FIR at
              the exact streamer's shapes, bit for bit;
 3. golden  — the four reference fixtures through the port's
-             make_batched_step_full(layout="tm"), and the raw lucky7 pass
+             make_batched_step_full(layout="tm") with front "fused" and
+             front "step" (B7), which must give the same bytes; the raw
+             lucky7 pass
              through the server's call make_batched_step_full("pallas",
              doppler=True, layout="fanout"), on the card; the four
              fixtures through the exact and float32 streamers and
@@ -34,9 +36,12 @@ Phases (any failure exits non-zero, and no result line is printed):
 4. main    — the paths, each driven with the launch counts set to 0 just
              before it and read just after: (a) 128 lanes x 2^20 samples of
              the lucky7 configuration (the bench.py shape), layouts "tm" and
-             "fanout"; (b) the server's step at its default shape, 128 lanes
-             x 262144 (server/config.py:76), layout "fanout", Doppler rows on
-             every lane, front "fused" and front "banded"; (c) fir_tpu over
+             "fanout", then "tm" through front "step" (B7); (b) the server's
+             step at its default shape, 128 lanes x 262144
+             (server/config.py:76), layout "fanout", Doppler rows on every
+             lane, front "fused", "banded" and "step".  Each "step" run must
+             equal its "fused" run bit for bit: every step's symbols and
+             counts, and the final state; (c) fir_tpu over
              128 lanes x 2^20 with the LPF2 taps, decimation 2.  One warm-up
              and 5 timed steps each (3 for fir_tpu), by CUDA events.  On
              each path's own inputs, outside the counted runs, the fronts
@@ -57,7 +62,9 @@ Phases (any failure exits non-zero, and no result line is printed):
              streamer's one-lane buffer must equal its plain version;
 5. kernels — each kernel alone at its path's shape: time, its plain
              version's time and error, its bound, and a PyTorch library
-             call's time where one computes the same function.
+             call's time where one computes the same function.  B7 at
+             128 x 2^20 with Doppler must equal B1 followed by B2 bit for
+             bit, and its plain version at 128 x 65536.
 
 Prints the card's name and power limit, one JSON line describing each
 kernel, and as its last line {"ok": true, "device": {...}}.  Exits non-zero
@@ -188,10 +195,11 @@ def counters():
     from sdrmodem_tpu_torch.ops import clock as clock_ops
     from sdrmodem_tpu_torch.ops import fir as fir_ops
     from sdrmodem_tpu_torch.ops import front as front_ops
-
+    from sdrmodem_tpu_torch.ops import step as step_ops
     from sdrmodem_tpu_torch.ops import tx as tx_ops
 
     return {"front": (front_ops, "launches"), "clock": (clock_ops, "launches"),
+            "step": (step_ops, "launches"),
             "clock_ragged": (clock_ops, "ragged_launches"),
             "fir": (fir_ops, "launches"), "fir_tpu": (fir_ops, "fir_tpu_launches"),
             "fir_exact": (fir_ops, "exact_launches"),
@@ -525,11 +533,15 @@ def phase_golden(torch, dev):
     for name, cfg, fin, fexp, block in GOLDEN_CASES:
         iq = np.fromfile(FIXTURES / fin, np.complex64)
         golden = np.fromfile(FIXTURES / fexp, np.int8)
-        rep = golden_report(demod_capture(DemodPipeline(cfg, block, device=dev), iq), golden)
-        log(f"[golden] {name}: {json.dumps(rep)}")
-        need(rep["symbols"] >= 0.99 * len(golden), f"{name}: too few symbols")
-        need(rep["hard_decision_agreement"] == 1.0, f"{name}: hard decisions differ")
-        need(rep["max_lsb"] <= 2, f"{name}: {rep['max_lsb']} LSB from the golden")
+        got = {front: demod_capture(DemodPipeline(cfg, block, device=dev), iq, front=front)
+               for front in ("fused", "step")}
+        for front, sym in got.items():
+            rep = golden_report(sym, golden)
+            log(f"[golden] {name} front={front}: {json.dumps(rep)}")
+            need(rep["symbols"] >= 0.99 * len(golden), f"{name} front={front}: too few symbols")
+            need(rep["hard_decision_agreement"] == 1.0, f"{name} front={front}: hard decisions differ")
+            need(rep["max_lsb"] <= 2, f"{name} front={front}: {rep['max_lsb']} LSB from the golden")
+        need(np.array_equal(got["fused"], got["step"]), f"{name}: front=step differs from fused")
 
     # the raw pass through the server's call, rows every 2000 samples (the
     # buffer the goldens were recorded with)
@@ -726,6 +738,17 @@ def clock_cost(n, c, sfx, n_chunks, k, symbols):
     return 4 * words, 30 * symbols
 
 
+def step_cost(c, b, taps, d, dop, sfx, n_chunks, k, symbols):
+    """(bytes, flops) of the fused step: the front's (``front_cost``) less
+    y3, which stays on the chip, plus the clock's state in and out, the
+    bank, and the symbol slots and counts written once; ~30 flops a symbol
+    this run emitted."""
+    front_bytes, front_flops = front_cost(c, b, taps, d, dop)
+    words = front_bytes // 4 - (b // d) * c
+    words += 2 * sfx * c + 8 * c + 129 * 8 + n_chunks * k * c + n_chunks * c
+    return 4 * words, front_flops + 30 * symbols
+
+
 def bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
@@ -734,7 +757,8 @@ def bound(nbytes, flops):
 
 def drive(torch, step, state, inputs):
     """One warm-up step on inputs[0], then the rest timed as one CUDA-event
-    window.  Returns (ms a timed step, first outputs, every timed output)."""
+    window.  Returns (ms a timed step, first outputs, every timed output,
+    the final state)."""
     state, sym, cnt = step(state, *inputs[0])
     first = (sym, cnt)
     torch.cuda.synchronize()
@@ -744,10 +768,42 @@ def drive(torch, step, state, inputs):
         for args in inputs[1:]:
             state, sym, cnt = step(state, *args)
             outs.append((sym, cnt))
-        return outs
+        return outs, state
 
-    ms, outs = cuda_ms(torch, run, 1)
-    return ms / (len(inputs) - 1), first, outs
+    ms, (outs, state) = cuda_ms(torch, run, 1)
+    return ms / (len(inputs) - 1), first, outs, state
+
+
+def same_stream(torch, a, b):
+    """Whether two steps' (symbols (C, n_chunks, K), counts (C, n_chunks))
+    give every lane the same symbols, whatever their chunk partitions."""
+    (sa, ca), (sb, cb) = a, b
+    if not torch.equal(ca.sum(1), cb.sum(1)):
+        return False
+    flat = [s[torch.arange(s.shape[2], device=s.device)[None, None, :] < c[:, :, None]]
+            for s, c in ((sa, ca), (sb, cb))]
+    return torch.equal(*flat)
+
+
+def same_state(torch, a, b):
+    """Whether two DemodStateFull are equal, field by field, bit for bit."""
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip((*a[:4], *a.clock), (*b[:4], *b.clock)))
+
+
+def hold_step(torch, what, got, pair):
+    """Gate front="step" against front="fused" with B2 on the same inputs:
+    every step's symbol stream and counts, and the final state, bit for
+    bit.  ``got`` and ``pair`` are drive()'s (first, outs, state)."""
+    (f1, o1, s1), (f2, o2, s2) = got, pair
+    steps = [f1, *o1]
+    need(len(steps) == len(o2) + 1, f"{what}: step counts differ")
+    for k, (a, b) in enumerate(zip(steps, [f2, *o2])):
+        need(same_stream(torch, a, b), f"{what}: step {k}'s symbols differ from the fused pair's")
+    need(same_state(torch, s1, s2), f"{what}: the final state differs from the fused pair's")
+    symbols = sum(int(c.sum().item()) for _, c in steps)
+    log(f"[main] {what}: equal to front=\"fused\" with B2 bit for bit over {len(steps)} steps "
+        f"({symbols} symbols) and the final state")
 
 
 def hold_front(what, got, plain, doppler):
@@ -961,14 +1017,30 @@ def phase_main(torch, dev):
     for layout, x in {"tm": x_tm, "fanout": x_fan}.items():
         step = pipe.make_batched_step_full(layout=layout)
         t0 = time.perf_counter()
-        (ms, first, outs), counts = counted(
+        (ms, first, outs, fin), counts = counted(
             torch, f"(a) {layout} 128 x 2^20", ("front", "clock"),
             lambda: drive(torch, step, pipe.init_full_state(c), [(x,)] * (MAIN_STEPS + 1)),
+            never=("step",),
         )
         add(counts)
-        results[layout] = dict(first=first, last=outs[-1], ms_step=ms)
+        results[layout] = dict(first=first, last=outs[-1], ms_step=ms, run=(first, outs, fin))
         log(f"[main] (a) {layout}: {ms:.4f} ms/step (CUDA events), "
             f"{c * b / (ms * 1e-3) / 1e6:.1f} Msamples/s; wall {time.perf_counter() - t0:.3f} s")
+    # the same block through the fused step (B7), layout tm
+    step = pipe.make_batched_step_full(layout="tm", front="step")
+    (ms, first, outs, fin), counts = counted(
+        torch, "(a) tm 128 x 2^20 front=step", ("step",),
+        lambda: drive(torch, step, pipe.init_full_state(c), [(x_tm,)] * (MAIN_STEPS + 1)),
+        never=("front", "clock"),
+    )
+    add(counts)
+    step_ms = {"a": ms}
+    log(f"[main] (a) tm front=step: {ms:.4f} ms/step (CUDA events), "
+        f"{c * b / (ms * 1e-3) / 1e6:.1f} Msamples/s; fused {results['tm']['ms_step']:.4f}")
+    hold_step(torch, "(a) tm front=step", (first, outs, fin), results["tm"]["run"])
+    for res in results.values():
+        del res["run"]
+    del first, outs, fin
     n2 = b // pipe.config.decimation
     chunk = chunk_plan(n2, c, sfx, **p)["chunk"]
     for layout, res in results.items():
@@ -1007,16 +1079,23 @@ def phase_main(torch, dev):
         f"({tables[0][0].shape[0]} rows a step) built on the host in {time.perf_counter() - t0:.3f} s, "
         "outside the timed window")
     server = {}
-    for front, want in (("fused", ("front", "clock")), ("banded", ("front", "fir", "clock"))):
+    for front, want, never in (("fused", ("front", "clock"), ("step",)),
+                               ("banded", ("front", "fir", "clock"), ("step",)),
+                               ("step", ("step",), ("front", "fir", "clock"))):
         step = spipe.make_batched_step_full("pallas", doppler=True, layout="fanout", front=front)
-        (ms, first, outs), counts = counted(
+        (ms, first, outs, fin), counts = counted(
             torch, f"(b) server 128 x 262144 fanout doppler front={front}", want,
             lambda: drive(torch, step, spipe.init_full_state(c), [(x_srv, t) for t in tables]),
+            never=never,
         )
         add(counts)
-        server[front] = dict(ms_step=ms, outs=[first, *outs])
+        server[front] = dict(ms_step=ms, outs=[first, *outs], run=(first, outs, fin))
         log(f"[main] (b) server step, front={front}: {ms:.4f} ms/step (CUDA events), "
             f"{c * bs / (ms * 1e-3) / 1e6:.1f} Msamples/s")
+    step_ms["b"] = server["step"]["ms_step"]
+    hold_step(torch, "(b) server step front=step", server.pop("step")["run"], server["fused"]["run"])
+    for res in server.values():
+        del res["run"]
     n2 = bs // spipe.config.decimation
     chunk = chunk_plan(n2, c, sfx, **p)["chunk"]
     for (sf, cf), (sb, cb) in zip(server["fused"]["outs"], server["banded"]["outs"]):
@@ -1073,7 +1152,7 @@ def phase_main(torch, dev):
     log(f"[main] launches over every main-path run: {json.dumps(totals)}")
     return dict(totals=totals, fir_tpu_ms=fir_tpu_ms, x_fir=x_fir, y_fir=y_fir, lpf2=lpf2,
                 tx_server=tx_server, tx_batched=tx_batched, streams=streams, ragged=ragged,
-                b4_b2=b4_b2, server_ms={k: v["ms_step"] for k, v in server.items()},
+                b4_b2=b4_b2, server_ms={k: v["ms_step"] for k, v in server.items()}, step_ms=step_ms,
                 front_err=max(front_errs), fir_err=max(fir_errs.values()))
 
 
@@ -1207,7 +1286,7 @@ def path_streamer(torch, dev, exact):
     (walls, sym), counts = counted(
         torch, f"{tag} streamer, one client, {STREAM_BLOCKS} x {b}",
         ("clock_ragged", "fir_exact" if exact else "fir"), run,
-        never=("front", "clock", "fir" if exact else "fir_exact"))
+        never=("front", "clock", "step", "fir" if exact else "fir_exact"))
     need(counts["clock_ragged"] == STREAM_BLOCKS, f"{tag}: {counts['clock_ragged']} B4 launches")
     golden = np.fromfile(FIXTURES / "lucky7.expected.s8", np.int8)
     rep = golden_report(sym[: len(golden)], golden)
@@ -1248,10 +1327,10 @@ def path_ragged_step(torch, dev):
     res, total = {}, {}
     omega = pipe.config.clock_params()["omega"]
     for name, nv in (("full", full), ("ragged", ragged)):
-        (ms, first, _), counts = counted(
+        (ms, first, _, _), counts = counted(
             torch, f"(h) ragged step 128 x 2^20, n_valid {name}", ("clock_ragged", "fir"),
             lambda: drive(torch, step, pipe.init_state(channels=c), [(x, nv)] * (MAIN_STEPS + 1)),
-            never=("front", "clock", "fir_exact"))
+            never=("front", "clock", "fir_exact", "step"))
         sym, cnt = first
         want = nv.double() / pipe.config.decimation / omega
         need(sym.dtype == torch.int8 and cnt.shape == (c,) and sym.abs().max().item() > 64,
@@ -1381,6 +1460,68 @@ def ragged_kernels(main, check_err):
     )]
 
 
+def step_args(state, taps, bank, p, dop=None):
+    """fused_step's arguments for a fresh pipeline state, chunk 1024."""
+    from sdrmodem_tpu_torch.dsp.clock_recovery import max_symbols
+    from sdrmodem_tpu_torch.ops.step import DEFAULT_CHUNK
+
+    ck = state.clock
+    kw = dict(chunk=DEFAULT_CHUNK, omega_mid=p["omega"], omega_relative_limit=p["omega_relative_limit"],
+              gain_omega=p["gain_omega"], gain_mu=p["gain_mu"], dop=dop,
+              num_symbols=max_symbols(DEFAULT_CHUNK + ck.suffix.shape[0], p["omega"],
+                                      p["omega_relative_limit"], p["gain_mu"]))
+    return (*state[:4], ck.suffix, ck.omega, ck.mu, ck.last_sample, ck.resid, taps, bank), kw
+
+
+def check_step_plain(torch, dev):
+    """B7 against its plain version at 128 lanes x 65536: one block of the
+    lucky7 capture without Doppler, bit for bit (outputs and state), and one
+    of the raw pass with each lane's Doppler rows, where the mixed block's
+    cos and sin come from two libraries (an ulp apart): the counts equal,
+    int8 symbols within 1 LSB, the front's tails within B1's bounds.
+    Returns (the plain version's ms without Doppler, the largest symbol
+    error)."""
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig, float_to_int8
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.ops import step as step_ops
+
+    pipe = DemodPipeline(FskDemodConfig(*LUCKY7), CHECK_BLOCK, device=dev)
+    p = pipe.config.clock_params()
+    state = pipe.init_full_state(LANES)
+    err, plain_ms = {}, None
+    for capture, dop in (("lucky7.expected.cf32", None),
+                         ("lucky7.cf32", doppler_tables(lane_dopplers(range(LANES)), CHECK_BLOCK, LANES, dev))):
+        x = capture_lanes(torch, dev, CHECK_BLOCK, LANES, capture)
+        args, kw = step_args(state, pipe.front_taps, pipe.bank, p, dop)
+        got = step_ops.fused_step(x, *args, **kw)
+        ms, want = cuda_ms(torch, lambda: step_ops.fused_step_plain(x, *args, **kw), 1)
+        (o, c, _, f, ck), (o_p, c_p, _, f_p, ck_p) = got, want
+        tag = "doppler" if dop is not None else "no doppler"
+        err[tag] = (o - o_p).abs().max().item() if torch.equal(c, c_p) else float("inf")
+        lsb = (float_to_int8(o).int() - float_to_int8(o_p).int()).abs().max().item()
+        if dop is None:
+            plain_ms = ms
+            need(torch.equal(o, o_p) and torch.equal(c, c_p)
+                 and all(torch.equal(a, b) for a, b in zip(f, f_p))
+                 and all(torch.equal(ck[k], ck_p[k]) for k in ck),
+                 "step: the kernel differs from its plain version without Doppler")
+        else:
+            tails = dict(mixed_tail=(f[0] - f_p[0]).abs().max().item(),
+                         quad_prev=(f[1] - f_p[1]).abs().max().item(),
+                         lpf2=(f[2] - f_p[2]).abs().max().item(), dc=(f[3] - f_p[3]).abs().max().item(),
+                         suffix=(ck["suffix"] - ck_p["suffix"]).abs().max().item())
+            log(f"[kernels] step vs plain with Doppler: int8 symbols {lsb} LSB apart, tails "
+                f"{json.dumps(tails)}, resid equal {bool(torch.equal(ck['resid'], ck_p['resid']))}")
+            need(torch.equal(c, c_p) and lsb <= 1, f"step with Doppler: counts or symbols ({lsb} LSB) "
+                 "differ from the plain version")
+            need(tails["mixed_tail"] <= MIXED_ATOL and tails["quad_prev"] <= 1e-6
+                 and max(tails["lpf2"], tails["dc"], tails["suffix"]) <= FRONT_ATOL,
+                 f"step with Doppler: tails {tails}")
+    log(f"[kernels] step (B7) against its plain version at {LANES} x {CHECK_BLOCK}: without Doppler "
+        f"equal bit for bit (plain {plain_ms:.1f} ms); max |kernel - plain| on the symbols {json.dumps(err)}")
+    return plain_ms, max(err.values())
+
+
 def phase_kernels(torch, dev, main):
     """Each kernel alone at its path's shape, against its plain version."""
     import torch.nn.functional as F
@@ -1391,6 +1532,7 @@ def phase_kernels(torch, dev, main):
     from sdrmodem_tpu_torch.ops import clock as clock_ops
     from sdrmodem_tpu_torch.ops import fir as fir_ops
     from sdrmodem_tpu_torch.ops import front as front_ops
+    from sdrmodem_tpu_torch.ops import step as step_ops
 
     c, b = LANES, MAIN_BLOCK
     pipe = DemodPipeline(FskDemodConfig(*LUCKY7), b, device=dev)
@@ -1458,7 +1600,7 @@ def phase_kernels(torch, dev, main):
 
     # ---- clock (B2) on the front's y3
     ck = state.clock
-    clock_ms, (outs, counts, _) = cuda_ms(
+    clock_ms, (outs, counts, ck_fin) = cuda_ms(
         torch, lambda: clock_mm_batched_full(y3, ck, bank=pipe.bank, **p), 3
     )
     plan = chunk_plan(*y3.shape, ck.suffix.shape[0], **p)
@@ -1475,6 +1617,25 @@ def phase_kernels(torch, dev, main):
     clock_err = (outs - o_p.permute(2, 0, 1)).abs().max().item()
     need(clock_err * 127 <= 1.0, f"clock at full width: {clock_err}")
     symbols = int(counts.sum().item())
+
+    # ---- step (B7): the same front with Doppler and clock in one launch,
+    # bit for bit against the pair just run (B1 with Doppler, then B2)
+    s_args, s_kw = step_args(state, taps, pipe.bank, p, dop)
+    step_ops.fused_step(x_tm, *s_args, **s_kw)  # warm-up
+    step_ms, (s_outs, s_counts, _, s_front, s_clock) = cuda_ms(
+        torch, lambda: step_ops.fused_step(x_tm, *s_args, **s_kw), 3)
+    pair_state = (*f_k, ck_fin.omega, ck_fin.mu, ck_fin.last_sample, ck_fin.resid, ck_fin.suffix)
+    step_state = (*s_front, *(s_clock[k] for k in ("omega", "mu", "last", "resid", "suffix")))
+    need(same_stream(torch, (s_outs.permute(2, 0, 1), s_counts.T), (outs, counts))
+         and all(torch.equal(a, b) for a, b in zip(step_state, pair_state)),
+         "step at 128 x 2^20 with Doppler differs from the front (B1) and the clock (B2)")
+    step_plain_ms, step_err = check_step_plain(torch, dev)
+    s_bound, s_by = bound(*step_cost(c, b, taps, pipe.config.decimation, dop, ck.suffix.shape[0],
+                                     s_outs.shape[0], s_outs.shape[1], int(s_counts.sum().item())))
+    log(f"[kernels] step (B7) at {c} x {b} with Doppler ({s_rows} rows) {step_ms:.4f} ms, equal to "
+        f"B1 + B2 bit for bit (the pair {front_ms:.4f} + {clock_ms:.4f} ms); bound {s_bound:.4f} "
+        f"ms by {s_by}; main-path steps {json.dumps(main['step_ms'])} ms")
+    del s_outs, s_counts, s_front, s_clock, step_state, pair_state
 
     f_bound, f_by = bound(*front_cost(c, b, taps, pipe.config.decimation, dop))
     c_bound, c_by = bound(*clock_cost(y3.shape[0], c, ck.suffix.shape[0], counts.shape[1],
@@ -1509,6 +1670,11 @@ def phase_kernels(torch, dev, main):
              replaces="sdrmodem_tpu/ops/pallas_fir.py:261", launches=launches["fir_tpu"],
              max_abs_err=fir_tpu_err, ms=main["fir_tpu_ms"], plain_ms=fir_tpu_plain_ms,
              bound_ms=t_bound, bound_by=t_by, library_ms=fir_tpu_lib_ms),
+        dict(name="step", route="cuda", source="sdrmodem_tpu_torch/csrc/step.cu",
+             replaces="sdrmodem_tpu/ops/pallas_step.py:89", launches=launches["step"],
+             max_abs_err=step_err, ms=step_ms, plain_ms=step_plain_ms,
+             plain_at=f"{LANES} x {CHECK_BLOCK}, the check size", bound_ms=s_bound, bound_by=s_by,
+             library_ms=None),
     ]
 
 

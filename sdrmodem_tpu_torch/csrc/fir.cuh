@@ -1,7 +1,8 @@
 // Time-major strided FIR, shared by the front end (front.cu, B1) and the
 // standalone FIRs (fir.cu: B3, its fir_tpu face B8, and the exact FIR), so
 // every FIR of either front is the same device code in the same order and
-// the fused and banded fronts agree bit for bit.
+// the fused and banded fronts agree bit for bit.  The fused step (step.cu,
+// B7) sums each output through the same fir_dot.
 //
 // One thread per (output row, lane), neighbouring threads on neighbouring
 // lanes so every load is coalesced, taps in shared memory and one
@@ -29,6 +30,16 @@ __device__ __forceinline__ double fir_mac(float tap, float x, double acc) {
   return fma((double)tap, (double)x, acc);
 }
 
+// One output's multiply-adds over taps [j0, j1) in tap order, continuing
+// acc: acc = fir_mac(rev_taps[j], p[(j - j0) * step], acc).  Every FIR of
+// the port (this kernel and the fused step, step.cu) sums through it.
+template <typename Acc>
+__device__ __forceinline__ Acc fir_dot(const float* rev_taps, int j0, int j1, const float* p,
+                                       long long step, Acc acc) {
+  for (int j = j0; j < j1; ++j, p += step) acc = fir_mac(rev_taps[j], *p, acc);
+  return acc;
+}
+
 // y[k, l] = sum_j taps[j] * work[k * stride + j, l], work = [hist | x]
 // (hist has ntaps - 1 rows).  rev_taps are the filter taps reversed.
 template <typename Acc>
@@ -48,13 +59,9 @@ __global__ void fir_tm_kernel(const float* __restrict__ hist,
   const long long r0 = k * stride;  // first row of [hist | x] under the window
   const int j_hist = (int)(r0 >= hist_rows ? 0 : min((long long)ntaps, hist_rows - r0));
   Acc acc = 0;
-  if (j_hist > 0) {
-    const float* hp = hist + r0 * lanes + lane;
-    for (int j = 0; j < j_hist; ++j, hp += lanes) acc = fir_mac(s_taps[j], *hp, acc);
-  }
+  if (j_hist > 0) acc = fir_dot(s_taps, 0, j_hist, hist + r0 * lanes + lane, lanes, acc);
   if (j_hist < ntaps) {
-    const float* xp = x + (r0 + j_hist - hist_rows) * lanes + lane;
-    for (int j = j_hist; j < ntaps; ++j, xp += lanes) acc = fir_mac(s_taps[j], *xp, acc);
+    acc = fir_dot(s_taps, j_hist, ntaps, x + (r0 + j_hist - hist_rows) * lanes + lane, lanes, acc);
   }
   y[k * lanes + lane] = (float)acc;
 }

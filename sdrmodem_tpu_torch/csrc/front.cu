@@ -20,7 +20,9 @@
 // (LPF1 over the I and Q lanes, LPF2 with stride d, the DC FIR); the
 // carried history is read through its own pointer, so [history | block] is
 // never copied.  A quadrature-demod kernel runs once in between, with the
-// reference's 257-entry arctangent table in shared memory.  The banded
+// reference's 257-entry arctangent table in shared memory.  Each stage's
+// per-sample device code (nco.cuh, fir.cuh, quad.cuh) is shared with the
+// fused step (step.cu, B7), so both give the same bits.  The banded
 // front (ops/front.py:banded_front) launches the same NCO, FIR and
 // quad-demod kernels one at a time, so both fronts give the same bits.
 // Every FMA waits on a load from L1, so the FIR runs at the load rate, not
@@ -33,37 +35,9 @@
 
 #include "fir.cuh"
 #include "nco.cuh"
+#include "quad.cuh"
 
 namespace {
-
-constexpr int kAtanTableSize = 257;
-
-// The reference LUT arctangent (src/math/fast_atan2f.c:87-150), with the
-// operations, their order and their NaN behaviour of the plain version
-// (dsp/elementwise.py:fast_atan2); the _rn intrinsics keep nvcc from
-// contracting a multiply and an add into an FMA.
-__device__ __forceinline__ float fast_atan2(float y, float x, const float* table) {
-  const float y_abs = fabsf(y), x_abs = fabsf(x);
-  if (!(y_abs > 0.f || x_abs > 0.f)) return 0.f;
-  if (isnan(y_abs) || isnan(x_abs)) return NAN;  // torch.maximum propagates NaN
-  const float denom = fmaxf(fmaxf(y_abs, x_abs), 1e-45f);
-  const float z = __fdiv_rn(fminf(y_abs, x_abs), denom);
-  const float alpha = __fmul_rn(z, 255.f);
-  const int index = min(max((int)alpha, 0), 255);
-  const float frac = __fsub_rn(alpha, (float)index);
-  const float t0 = table[index];
-  const float t1 = table[index + 1];
-  const float interp = __fadd_rn(t0, __fmul_rn(__fsub_rn(t1, t0), frac));
-  const float base = z < 0.003921569f ? z : interp;
-  const float kPi = 3.14159265358979f;
-  const float kHalfPi = 1.57079632679490f;
-  if (x_abs > y_abs) {
-    if (x >= 0.f) return y >= 0.f ? base : -base;
-    return y >= 0.f ? __fsub_rn(kPi, base) : __fsub_rn(base, kPi);
-  }
-  if (y >= 0.f) return x >= 0.f ? __fsub_rn(kHalfPi, base) : __fadd_rn(kHalfPi, base);
-  return x >= 0.f ? __fsub_rn(base, kHalfPi) : __fsub_rn(-kHalfPi, base);
-}
 
 // yq[k, c] = gain * atan2(im, re) of y1[k] * conj(y1[k-1]); y1 is (rows, 2C)
 // with I in lanes [0, C) and Q in [C, 2C); y1[-1] is prev (the carried row).
@@ -82,11 +56,7 @@ __global__ void quad_demod_kernel(const float* __restrict__ y1,
     const int c = (int)(idx - k * lanes);
     const float* cur = y1 + k * 2 * lanes;
     const float* prv = k == 0 ? prev : cur - 2 * lanes;
-    const float i = cur[c], q = cur[lanes + c];
-    const float si = prv[c], sq = prv[lanes + c];
-    const float re = __fadd_rn(__fmul_rn(i, si), __fmul_rn(q, sq));
-    const float im = __fsub_rn(__fmul_rn(q, si), __fmul_rn(i, sq));
-    yq[idx] = __fmul_rn(gain, fast_atan2(im, re, s_table));
+    yq[idx] = quad_demod_sample(cur[c], cur[lanes + c], prv[c], prv[lanes + c], s_table, gain);
   }
 }
 

@@ -24,8 +24,8 @@
 // ramp would move the phase by an ulp of ~6000 rad (~5e-4).  cos and sin
 // are the accurate library functions (no fast math).  A lane with no
 // active row gets phase 0 exactly, cos 1 and sin 0, and passes through
-// bit for bit.  It runs as its own launch ahead of LPF1; folding it into
-// LPF1's loads is a later step.
+// bit for bit.  It runs as its own launch ahead of LPF1; the fused step
+// (step.cu, B7) calls the same per-sample function on its input tile.
 
 #pragma once
 
@@ -34,36 +34,45 @@
 
 namespace {
 
-// tab is (5, S, C): starts, ends, adjs, ph0s and the per-4096 coarse steps
-// (float32 of mod(float64(adj) * 4096, 2 pi), computed by the wrapper).
+// Lane c's sample (i, q) at block row nrow mixed by the table.  tab is
+// (5, S, C): starts, ends, adjs, ph0s and the per-4096 coarse steps
+// (float32 of mod(float64(adj) * 4096, 2 pi), computed by the wrapper);
+// nrow is exact in float32 (the wrappers keep rows < 2^24).
+__device__ __forceinline__ float2 nco_mix_sample(const float* __restrict__ tab, int s_rows,
+                                                 int lanes, int c, float nrow, float i,
+                                                 float q) {
+  const long long plane = (long long)s_rows * lanes;
+  float ph = 0.f;
+  for (int s = 0; s < s_rows; ++s) {
+    const float* t = tab + (long long)s * lanes + c;
+    const float st = t[0], en = t[plane], adj = t[2 * plane];
+    const float ph0 = t[3 * plane], stp = t[4 * plane];
+    const bool active = nrow >= st && nrow < en;
+    const float dd = __fsub_rn(nrow, st);
+    const float kq = floorf(__fmul_rn(dd, 1.f / 4096.f));
+    const float mq = __fsub_rn(dd, __fmul_rn(kq, 4096.f));
+    const float ramp = __fadd_rn(__fadd_rn(ph0, __fmul_rn(mq, adj)), __fmul_rn(kq, stp));
+    ph = __fadd_rn(ph, active ? ramp : 0.f);
+  }
+  const float cs = cosf(ph), sn = sinf(ph);
+  return make_float2(__fsub_rn(__fmul_rn(i, cs), __fmul_rn(q, sn)),
+                     __fadd_rn(__fmul_rn(i, sn), __fmul_rn(q, cs)));
+}
+
+// y (rows, 2C) = x mixed by the (5, S, C) table, one thread an element.
 __global__ void nco_mix_tm_kernel(const float* __restrict__ x, int rows, int lanes,
                                   const float* __restrict__ tab, int s_rows,
                                   float* __restrict__ y) {
   const long long n = (long long)rows * lanes;
-  const long long plane = (long long)s_rows * lanes;
   for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
        idx += (long long)gridDim.x * blockDim.x) {
     const long long k = idx / lanes;
     const int c = (int)(idx - k * lanes);
-    const float nrow = (float)k;  // exact: the wrapper keeps rows < 2^24
-    float ph = 0.f;
-    for (int s = 0; s < s_rows; ++s) {
-      const float* t = tab + (long long)s * lanes + c;
-      const float st = t[0], en = t[plane], adj = t[2 * plane];
-      const float ph0 = t[3 * plane], stp = t[4 * plane];
-      const bool active = nrow >= st && nrow < en;
-      const float dd = __fsub_rn(nrow, st);
-      const float kq = floorf(__fmul_rn(dd, 1.f / 4096.f));
-      const float mq = __fsub_rn(dd, __fmul_rn(kq, 4096.f));
-      const float ramp = __fadd_rn(__fadd_rn(ph0, __fmul_rn(mq, adj)), __fmul_rn(kq, stp));
-      ph = __fadd_rn(ph, active ? ramp : 0.f);
-    }
-    const float cs = cosf(ph), sn = sinf(ph);
     const float* in = x + k * 2 * lanes;
     float* out = y + k * 2 * lanes;
-    const float i = in[c], q = in[lanes + c];
-    out[c] = __fsub_rn(__fmul_rn(i, cs), __fmul_rn(q, sn));
-    out[lanes + c] = __fadd_rn(__fmul_rn(i, sn), __fmul_rn(q, cs));
+    const float2 m = nco_mix_sample(tab, s_rows, lanes, c, (float)k, in[c], in[lanes + c]);
+    out[c] = m.x;
+    out[lanes + c] = m.y;
   }
 }
 

@@ -18,9 +18,11 @@ Counterpart of ``sdrmodem_tpu/dsp/pipeline.py``.  Two paths:
   (``ops/front.py``: fused, or banded on B3) and the clock kernel
   (``ops/clock.py``), and every FIR tail, the one-row quad-demod carry and
   the clock's {omega, mu, last, suffix, resid} carry over in
-  ``DemodStateFull``.  Its state is time-major with channels along the last
-  axis, unpadded: the JAX package pads lanes to a multiple of 128 for the
-  TPU, the port does not (``utils/convert.py`` crosses between the two).
+  ``DemodStateFull``.  ``front="step"`` runs the front and the clock as
+  one kernel (B7, ``ops/step.py``) on the same state.  Its state is
+  time-major with channels along the last axis, unpadded: the JAX package
+  pads lanes to a multiple of 128 for the TPU, the port does not
+  (``utils/convert.py`` crosses between the two).
 
 JAX's ``dynamic_slice`` and ``dynamic_update_slice`` clamp their starts so
 the window fits; each clamp is written out here.  Entry points run on the
@@ -43,6 +45,8 @@ from sdrmodem_tpu_torch.dsp.clock_recovery import (
     clock_mm_stream,
     initial_full_state,
     initial_state,
+    max_symbols,
+    suffix_cap_for,
 )
 from sdrmodem_tpu_torch.dsp.elementwise import (
     atan2_dispatch,
@@ -56,6 +60,7 @@ from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig, float_to_int8
 from sdrmodem_tpu_torch.ops._build import resolve_device
 from sdrmodem_tpu_torch.ops.clock import default_bank
 from sdrmodem_tpu_torch.ops.front import FrontTaps, banded_front, fused_front
+from sdrmodem_tpu_torch.ops.step import DEFAULT_CHUNK, check_step, fused_step
 
 LAYOUTS = ("cm", "tm", "fanout")
 FRONTS = {"fused": fused_front, "banded": banded_front}
@@ -397,9 +402,43 @@ class DemodPipeline:
             )
         return x.contiguous()
 
+    def fused_step_available(self, channels: int, chunk: int = DEFAULT_CHUNK) -> bool:
+        """Whether ``front="step"`` (B7) takes this block: whole clock
+        chunks, ``block % (d * chunk) == 0``, and a chunk that holds the
+        carried suffix.  Any number of channels: the JAX kernel's one
+        128-lane register of channels is the TPU's, not the port's."""
+        sfx = suffix_cap_for(self._clockp["omega"])
+        try:
+            check_step(self.block, self.config.decimation, chunk, sfx)
+        except ValueError:
+            return False
+        return int(channels) >= 1
+
+    def _step_fused_impl(self, state: DemodStateFull, x_tm, dop, chunk: int = DEFAULT_CHUNK):
+        """One block through the fused front+clock kernel (``ops/step.py``):
+        (state', outs (C, n_chunks, K) f32, counts (C, n_chunks) i32), the
+        bits of ``fused_front`` followed by ``clock_mm_batched_full`` with
+        the symbols in chunks of ``chunk`` rows."""
+        p = self._clockp
+        ck = state.clock
+        omega_mid = float(np.float32(p["omega"]))
+        num_symbols = max_symbols(
+            chunk + ck.suffix.shape[0], omega_mid, p["omega_relative_limit"], p["gain_mu"]
+        )
+        sym, counts, _, front, clock = fused_step(
+            x_tm, *state[:4], ck.suffix, ck.omega, ck.mu, ck.last_sample, ck.resid,
+            self.front_taps, self.bank, chunk=chunk, num_symbols=num_symbols, omega_mid=omega_mid,
+            omega_relative_limit=p["omega_relative_limit"], gain_omega=p["gain_omega"],
+            gain_mu=p["gain_mu"], dop=dop,
+        )
+        new_clock = ClockFullState(
+            clock["omega"], clock["mu"], clock["last"], clock["suffix"], clock["resid"], ck.overflow
+        )
+        return DemodStateFull(*front, new_clock), sym.permute(2, 0, 1), counts.T
+
     def make_batched_step_full(
         self, clock_backend: str = "pallas", *, doppler: bool = False, layout: str = "cm",
-        front: str = "fused",
+        front: str = "fused", chunk: int = DEFAULT_CHUNK,
     ):
         """Batched full-block step: (state, x) -> (state', symbols int8
         (C, n_chunks, K), counts int32 (C, n_chunks)); with ``doppler=True``
@@ -423,13 +462,21 @@ class DemodPipeline:
                      Doppler still sets the lanes apart.
 
         ``front`` is "fused" (``ops/front.py:fused_front``, B1 from one C
-        call) or "banded" (``banded_front``: the same kernels one at a
-        time, its FIRs through B3); the two give the same bits.  It is an
-        argument, and no environment variable is read.  The JAX package
+        call, the default), "banded" (``banded_front``: the same kernels one
+        at a time, its FIRs through B3) or "step" (``ops/step.py:
+        fused_step``, B7: the front and the clock in one kernel, y3 kept on
+        the chip, the clock in chunks of ``chunk`` decimated rows).  All
+        three give the same symbol stream, bit for bit; "step" splits it into
+        chunks of ``chunk`` rows where the others take ``clock_chunk(C)``.
+        As in the JAX package, "step" with ``clock_backend="scan"`` runs
+        "fused" (the step's clock is the chunked kernel).  "step" needs a
+        block of whole chunks, ``block % (d * chunk) == 0``, and raises
+        ``ValueError`` otherwise: the JAX package then takes the fused
+        front by itself, the port does not hide the kernel.  These are
+        arguments, and no environment variable is read.  The JAX package
         falls back to "banded" by itself when a block has no legal TPU tile;
         the port's fused front takes any block with ``block % d == 0``, so
-        it never falls back.  "step", the fused front+clock kernel (B7,
-        ``sdrmodem_tpu/ops/pallas_step.py``), is not ported yet.
+        it never falls back.
 
         With ``doppler=True`` the step takes ``dop = (starts, ends, adjs,
         ph0s)``, each an (S, C) float32 tensor on the pipeline's device with
@@ -446,21 +493,24 @@ class DemodPipeline:
         self._check_full_block()
         if clock_backend not in ("pallas", "scan"):
             raise ValueError(f"unknown clock_backend {clock_backend!r}")
+        if front == "step" and clock_backend != "pallas":
+            front = "fused"  # the fused step is the chunked clock kernel
         if front == "step":
-            raise NotImplementedError(
-                "front='step' is the fused front+clock kernel B7 "
-                "(sdrmodem_tpu/ops/pallas_step.py), which is not ported yet"
-            )
-        if front not in FRONTS:
+            check_step(self.block, self.config.decimation, chunk,
+                       suffix_cap_for(self._clockp["omega"]))
+        elif front not in FRONTS:
             raise ValueError(f"unknown front {front!r}")
         if layout not in LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}")
         p = self._clockp
-        front_fn = FRONTS[front]
+        front_fn = FRONTS.get(front)
 
         def step(state: DemodStateFull, x: torch.Tensor, dop=None):
             c = state.quad_prev.shape[1] // 2
             x_tm = self.to_time_major(x, c, layout)
+            if front == "step":
+                new_state, outs, counts = self._step_fused_impl(state, x_tm, dop, chunk)
+                return new_state, float_to_int8(outs), counts
             y3, fstate = front_fn(
                 x_tm,
                 state.lpf1_hist,

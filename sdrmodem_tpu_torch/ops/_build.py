@@ -34,7 +34,10 @@ NVCC_FLAGS = [
     "-Xptxas",
     "-v",
 ]
-# per-source flags: the clock's f32 step must never be contracted into FMAs
+# per-source flags: nothing of the clocks' f32 arithmetic may be contracted
+# into FMAs.  mm_step.cuh writes the M&M step with explicit round-to-nearest
+# intrinsics, so the fused step (step.cu) builds with the front end's
+# default flags and gives front.cu's bits, cosf and sinf included.
 EXTRA_FLAGS = {"clock": ["-fmad=false"]}
 
 _libs: dict[str, ctypes.CDLL] = {}

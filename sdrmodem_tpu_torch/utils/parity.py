@@ -25,13 +25,14 @@ GOLDEN_CASES = [
 ]
 
 
-def demod_capture(pipe: DemodPipeline, iq: np.ndarray) -> np.ndarray:
+def demod_capture(pipe: DemodPipeline, iq: np.ndarray, front: str = "fused") -> np.ndarray:
     """One channel of complex64 IQ through the full-block step (layout
-    "tm"), zero-padded to whole blocks; returns its int8 symbols."""
+    "tm", the given ``front``), zero-padded to whole blocks; returns its
+    int8 symbols."""
     block = pipe.block
     padded = np.zeros(-(-len(iq) // block) * block, np.complex64)
     padded[: len(iq)] = iq
-    step = pipe.make_batched_step_full(layout="tm")
+    step = pipe.make_batched_step_full(layout="tm", front=front)
     state = pipe.init_full_state(1)
     out = []
     for start in range(0, len(padded), block):

@@ -19,7 +19,10 @@ kernels (B5, B6) within 1e-4 of their plain versions on I/Q and the phase
 take cos/sin from two libraries), the exported history exact.  The ragged
 clock (B4) and the float64-accumulated FIR are exact: the same operations
 in the same order.  The exact streamer on the card gives the bytes it
-gives on the CPU.
+gives on the CPU.  The fused step (B7) runs the front's and the clock's
+device code in their order: bit for bit against its plain version without
+Doppler, and against the fused front (B1) followed by B2 with and without
+it (the same symbol stream, chunked otherwise, and the same state).
 """
 
 import numpy as np
@@ -35,6 +38,7 @@ from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline, DemodStateFull
 from sdrmodem_tpu_torch.ops import clock as clock_ops
 from sdrmodem_tpu_torch.ops import fir as fir_ops
 from sdrmodem_tpu_torch.ops import front as front_ops
+from sdrmodem_tpu_torch.ops import step as step_ops
 from sdrmodem_tpu_torch.ops import tx as tx_ops
 from sdrmodem_tpu_torch.utils.convert import doppler_tables_from_numpy, segment_tables
 
@@ -365,3 +369,78 @@ def test_exact_streamer_card_equals_cpu(cuda, name):
     host = DemodPipeline(cfg, 8192, exact=True, device="cpu").streamer().process(iq)
     assert np.array_equal(card, host)
     assert golden_report(card, np.fromfile(fixtures / fexp, np.int8))["max_lsb"] <= 2
+
+
+def _step_flat(sym, cnt):
+    """Each lane's symbols, concatenated over the chunks."""
+    return [torch.cat([sym[lane, k, :n] for k, n in enumerate(cnt[lane].tolist())])
+            for lane in range(cnt.shape[0])]
+
+
+def _nan_blocks(block, c, n, seed):
+    """n blocks of noise, lane 1's first block with a NaN stretch (which
+    the quad demod's arctangent turns into 0, as the reference's does) and
+    one infinite I sample, whose inf - inf sums carry NaN into y3 and the
+    clock's NaN branch."""
+    rng = np.random.default_rng(seed)
+    xs = [rng.standard_normal((block, 2 * c)).astype(np.float32) for _ in range(n)]
+    xs[0][1000:1040, [1, c + 1]] = np.nan
+    xs[0][3000, 1] = np.inf
+    return xs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,chunk", [("lucky7", 1024), ("lucky7_nodc", 1024), ("nusat", 256)])
+def test_step_kernel_matches_plain(cuda, name, chunk):
+    c, block = 5, 8192
+    pipe = DemodPipeline(FskDemodConfig(*CONFIGS[name]), block, device=cuda)
+    p = pipe.config.clock_params()
+    state = pipe.init_full_state(c)
+    ck = state.clock
+    kw = dict(chunk=chunk, omega_mid=p["omega"], omega_relative_limit=p["omega_relative_limit"],
+              gain_omega=p["gain_omega"], gain_mu=p["gain_mu"], num_symbols=300)
+    for blk, x in enumerate(_nan_blocks(block, c, 2, 3)):
+        x = torch.from_numpy(x).to(cuda)
+        args = (x, *state[:4], ck.suffix, ck.omega, ck.mu, ck.last_sample, ck.resid,
+                pipe.front_taps, pipe.bank)
+        n0 = step_ops.launches
+        outs, counts, ovf, front, fin = step_ops.fused_step(*args, **kw)
+        assert step_ops.launches == n0 + 1
+        outs_p, counts_p, _, front_p, fin_p = step_ops.fused_step_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert outs.shape == (block // (pipe.config.decimation * chunk), 304, c)
+        assert torch.equal(outs, outs_p) and torch.equal(counts, counts_p) and not ovf.any()
+        for a, b in zip(front, front_p):
+            assert (a is None and b is None) or torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for key in ("omega", "mu", "last", "resid", "suffix"):
+            assert torch.equal(fin[key], fin_p[key])
+        if blk == 0:  # lane 1's NaN stretch: the NaN branch emits zeros
+            assert (outs[:, :, 1] == 0).sum() > (outs[:, :, 0] == 0).sum() + 20
+        state = DemodStateFull(*front, ck._replace(
+            omega=fin["omega"], mu=fin["mu"], last_sample=fin["last"], resid=fin["resid"],
+            suffix=fin["suffix"]))
+        ck = state.clock
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,with_dop", [("lucky7", False), ("lucky7", True), ("lucky7_nodc", True),
+                                           ("nusat", False)])
+def test_step_kernel_equals_front_and_clock(cuda, name, with_dop):
+    """B7 against B1 followed by B2 through the pipeline, three blocks."""
+    c, block = 6, 8192
+    pipe = DemodPipeline(FskDemodConfig(*CONFIGS[name]), block, device=cuda)
+    kw = dict(layout="tm", doppler=with_dop)
+    step = pipe.make_batched_step_full("pallas", front="step", **kw)
+    pair = pipe.make_batched_step_full("pallas", front="fused", **kw)
+    st_s = st_p = pipe.init_full_state(c)
+    dops = _dop_blocks(block, 3, c, [0, 2, 5], cuda) if with_dop else [None] * 3
+    for x, dop in zip(_nan_blocks(block, c, 3, 4), dops):
+        x = torch.from_numpy(x).to(cuda)
+        args = (dop,) if with_dop else ()
+        n0 = (step_ops.launches, front_ops.launches, clock_ops.launches)
+        st_s, sym_s, cnt_s = step(st_s, x, *args)
+        assert (step_ops.launches, front_ops.launches, clock_ops.launches) == (n0[0] + 1, *n0[1:])
+        st_p, sym_p, cnt_p = pair(st_p, x, *args)
+        assert all(torch.equal(a, b) for a, b in zip(_step_flat(sym_s, cnt_s), _step_flat(sym_p, cnt_p)))
+        for a, b in zip((*st_s[:4], *st_s.clock), (*st_p[:4], *st_p.clock)):
+            assert (a is None and b is None) or torch.equal(a.view(torch.int32), b.view(torch.int32))
