@@ -20,8 +20,10 @@ Phases (any failure exits non-zero, and no result line is printed):
              B5 at 2048 B and 32 KiB at I = 2 and 60 and B6 at 5 and 128
              streams x 2048 B, with a carried phase and history and a
              ragged n_valid; B4 at 128 lanes x 65536 in both layouts (a NaN
-             stretch, ragged n_valid and read starts) and the float64 FIR at
-             the exact streamer's shapes, bit for bit;
+             stretch, ragged n_valid and read starts), at its own slot size
+             and at 64 rows a slot, and the float64 FIR at the exact
+             streamer's shapes, bit for bit; B4 alone at 128, 512 and 1024
+             lanes x 65536, each lane equal to the 128-lane run;
 3. golden  — the four reference fixtures through the port's
              make_batched_step_full(layout="tm") with front "fused" and
              front "step" (B7), which must give the same bytes; the raw
@@ -71,6 +73,7 @@ kernel, and as its last line {"ok": true, "device": {...}}.  Exits non-zero
 without a CUDA device, or where the port is not beside this script.
 """
 
+import functools
 import json
 import pathlib
 import subprocess
@@ -108,6 +111,8 @@ MAIN_STEPS = 5
 FRONT_ATOL = 1e-4  # tests/test_fused_front.py:46
 MIXED_ATOL = 2e-6  # the NCO's cos and sin, an ulp apart (tests/test_torch_doppler.py)
 BAND_OFFSET = 37
+SMALL_SLOT_ROWS = 64  # B4's staged rows a slot in the slot-edge gate
+B4_LANES = (128, 512, 1024)  # lanes of B4's timing alone, ROADMAP P1
 
 # the lucky7 pass the Doppler goldens were recorded with (tests/test_doppler.py)
 TLE = [
@@ -189,6 +194,23 @@ def graph_ms(torch, fn, reps):
     graph.replay()
     ms, _ = cuda_ms(torch, graph.replay, 3)
     return ms / reps, out
+
+
+@functools.cache
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def b4_time(ms, shape, counts, bnd):
+    """One B4 time as the log gives each: its shape, the symbols a lane, us
+    a symbol step along the longest lane's chain, its bound and the card."""
+    most = max(int(counts.max().item()), 1)
+    return (f"{ms:.4f} ms at {shape}, {counts.double().mean().item():.1f} symbols a lane (most "
+            f"{most}), {ms * 1e3 / most:.4f} us a step, bound {bnd[0]:.6f} ms by {bnd[1]} [{card()}]")
 
 
 def counters():
@@ -477,21 +499,35 @@ def check_ragged(torch, dev):
               gain_omega=p["gain_omega"], gain_mu=p["gain_mu"],
               num_symbols=max_symbols(n, p["omega"], p["omega_relative_limit"], p["gain_mu"]))
     times = {}
+    slot_rows = clock_ops.RAGGED_SLOT_ROWS
     for layout, y in (("time-major", y3), ("channel-major", y3.T.contiguous())):
         tm = layout == "time-major"
         clock_ops.clock_mm_tpu(y, *args, time_major=tm, **kw)  # warm-up
         ms, got = cuda_ms(torch, lambda: clock_ops.clock_mm_tpu(y, *args, time_major=tm, **kw), 3)
         plain_ms, want = cuda_ms(torch, lambda: clock_ops.clock_mm_tpu_plain(y, *args, time_major=tm, **kw), 1)
-        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and all(
-            torch.equal(got[2][key], want[2][key]) for key in ("omega", "mu", "last", "ii"))
-        need(same, f"B4 ({layout}) differs from its plain version")
+        need(same_ragged(torch, got, want), f"B4 ({layout}) differs from its plain version")
         err = (got[0] - want[0]).abs().max().item()
         need(got[1].min().item() > 0.9 * (n - 97 * c // 2) / p["omega"], f"B4 ({layout}): too few symbols")
         need((got[0][5, : got[1][5]] == 0).sum().item() >= 6, "B4: the NaN stretch emitted no zeros")
-        times[layout] = dict(ms=ms, plain_ms=plain_ms, symbols=int(got[1].sum().item()), max_abs_err=err)
-    log(f"[check] B4 at {c} x {n} against its plain version: equal bit for bit in both layouts "
-        f"(NaN stretch, ragged n_valid, read starts); kernel and plain ms at this size "
-        f"{json.dumps(times)}")
+        # slot edges every dozen symbols: the hand-off and the read starts,
+        # the NaN stretch and the ragged ends across them
+        clock_ops.RAGGED_SLOT_ROWS = SMALL_SLOT_ROWS
+        try:
+            small_ms, small = cuda_ms(
+                torch, lambda: clock_ops.clock_mm_tpu(y, *args, time_major=tm, **kw), 1)
+        finally:
+            clock_ops.RAGGED_SLOT_ROWS = slot_rows
+        need(same_ragged(torch, small, want),
+             f"B4 ({layout}) at {SMALL_SLOT_ROWS} rows a slot differs from its plain version")
+        times[layout] = dict(ms=ms, plain_ms=plain_ms, symbols=int(got[1].sum().item()),
+                             max_abs_err=err, small_slot_ms=small_ms)
+        bnd = bound(*ragged_clock_cost(c, y3.shape[0], got[0].shape[1], times[layout]["symbols"]))
+        log(f"[check] B4 {layout}: {b4_time(ms, f'{c} x {n}', got[1], bnd)}; at "
+            f"{SMALL_SLOT_ROWS} rows a slot {small_ms:.4f} ms")
+    log(f"[check] B4 at {c} x {n} against its plain version: equal bit for bit in both layouts, "
+        f"at {slot_rows} and at {SMALL_SLOT_ROWS} rows a slot (NaN stretch, ragged n_valid, read "
+        f"starts); kernel and plain ms at this size {json.dumps(times)}")
+    lanes = b4_lanes(torch, y3.T.contiguous(), args[1:4], kw)
 
     x = capture_lanes(torch, dev, SERVER_BLOCK, 128)
     taps = lucky7_taps()
@@ -512,7 +548,42 @@ def check_ragged(torch, dev):
              f"the float64 FIR ({name}) differs from its plain version")
     log(f"[check] the float64 FIR at {json.dumps({k: list(v[0].shape) for k, v in shapes.items()})}: "
         "equal to its plain version bit for bit")
-    return times
+    return times, lanes
+
+
+def same_ragged(torch, got, want):
+    """B4's results equal bit for bit: symbols, counts, final state."""
+    return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and all(
+        torch.equal(got[2][key], want[2][key]) for key in ("omega", "mu", "last", "ii"))
+
+
+def b4_lanes(torch, y_cm, state, kw):
+    """B4 alone, channel-major, on the check's 128 lanes tiled to 512 and
+    1024 lanes, every lane full from 0: whether lanes past the card's
+    132 SMs are free.  Each tiled lane must equal its 128-lane original
+    bit for bit.  Returns {lanes: ms}."""
+    from sdrmodem_tpu_torch.ops import clock as clock_ops
+
+    c0, n = y_cm.shape
+    res, base = {}, None
+    for lanes in B4_LANES:
+        y = y_cm.repeat(lanes // c0, 1)
+        dev = y.device
+        args = (torch.full((lanes,), n, dtype=torch.int32, device=dev),
+                *(v.repeat(lanes // c0) for v in state),
+                torch.zeros(lanes, dtype=torch.int32, device=dev))
+        clock_ops.clock_mm_tpu(y, *args, **kw)  # warm-up
+        ms, got = cuda_ms(torch, lambda: clock_ops.clock_mm_tpu(y, *args, **kw), 3)
+        if base is None:
+            base = got
+        tiled = (base[0].repeat(lanes // c0, 1), base[1].repeat(lanes // c0),
+                 {k: v.repeat(lanes // c0) for k, v in base[2].items()})
+        need(same_ragged(torch, got, tiled), f"B4 at {lanes} lanes differs from the {c0}-lane run")
+        bnd = bound(*ragged_clock_cost(lanes, n, got[0].shape[1], int(got[1].sum().item())))
+        res[lanes] = ms
+        log(f"[check] B4 lanes (channel-major, full lanes): {b4_time(ms, f'{lanes} x {n}', got[1], bnd)}")
+        del y, got
+    return res
 
 
 def phase_check(torch, dev):
@@ -520,7 +591,7 @@ def phase_check(torch, dev):
     check_fir(torch, dev)
     check_doppler_front(torch, dev)
     err = check_tx(torch, dev)
-    err["ragged"] = check_ragged(torch, dev)
+    err["ragged"], err["b4_lanes"] = check_ragged(torch, dev)
     return err
 
 
@@ -1202,10 +1273,12 @@ def b4_against_b2(torch, pipe, x_tm):
                 f"{(seq2[: len(seq4)] - seq4[: len(seq2)]).abs().max().item()}")
         need(equal, f"(a) B4 ({layout}) over [suffix | y3] differs from B2's symbols")
     symbols = int(tm[1].sum().item())
+    bnd = bound(*ragged_clock_cost(c, w, tm[0].shape[1], symbols))
     log(f"[main] (a) B4 over [suffix | y3] of the first block equals B2's symbols, bit for bit, "
-        f"in both layouts ({symbols} symbols over {c} lanes); B4 at {c} x {w} {ms:.4f} ms "
-        f"time-major, {ms_cm:.4f} ms channel-major")
-    return ms, bound(*ragged_clock_cost(c, w, tm[0].shape[1], symbols))
+        f"in both layouts ({symbols} symbols over {c} lanes); B4 time-major "
+        f"{b4_time(ms, f'{c} x {w}', tm[1], bnd)}; channel-major "
+        f"{b4_time(ms_cm, f'{c} x {w}', cm[1], bnd)}")
+    return ms, bnd
 
 
 def stream_split(torch, pipe, iq_block):
@@ -1252,12 +1325,11 @@ def stream_split(torch, pipe, iq_block):
     b4_ms, got = cuda_ms(torch, b4, 5)
     # held bit for bit against its plain version at this shape (one lane)
     plain_ms, want = cuda_ms(torch, lambda: clock_ops.clock_mm_tpu_plain(*args, **kw), 1)
-    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and all(
-        torch.equal(got[2][key], want[2][key]) for key in ("omega", "mu", "last", "ii"))
-    need(same, f"B4 at the streamer's 1 x {work.shape[1]} differs from its plain version")
+    shape = f"1 x {work.shape[1]}"
+    need(same_ragged(torch, got, want), f"B4 at the streamer's {shape} differs from its plain version")
     outs, counts, _ = got
     b4_bound = bound(*ragged_clock_cost(1, work.shape[1], outs.shape[1], int(counts.sum().item())))
-    return split, dict(ms=b4_ms, plain_ms=plain_ms, shape=f"1 x {work.shape[1]}", bound=b4_bound)
+    return split, dict(ms=b4_ms, plain_ms=plain_ms, note=b4_time(b4_ms, shape, counts, b4_bound))
 
 
 def path_streamer(torch, dev, exact):
@@ -1301,8 +1373,7 @@ def path_streamer(torch, dev, exact):
         f"{rate:.3f} Msamples/s over {STREAM_BLOCKS} blocks, {len(sym)} symbols; stages alone "
         f"(CUDA events, ms): {json.dumps(split)}; the rest (glue, copies, int8) "
         f"{ms - sum(split.values()):.4f} ms by subtraction; B4 alone inside the clock "
-        f"{b4['ms']:.4f} ms at {b4['shape']} (bound {b4['bound'][0]:.6f} ms by {b4['bound'][1]}), "
-        f"equal to its plain version bit for bit (plain {b4['plain_ms']:.1f} ms)")
+        f"{b4['note']}, equal to its plain version bit for bit (plain {b4['plain_ms']:.1f} ms)")
     return dict(ms_block=ms, msamples_s=rate, split=split, b4_ms=b4["ms"]), counts
 
 
@@ -1354,8 +1425,7 @@ def path_ragged_step(torch, dev):
     res["b4_ms"] = ms
     res["b4_bound"] = bound(*ragged_clock_cost(c, work.shape[1], outs.shape[1], int(counts.sum().item())))
     res["b4_shape"] = f"{c} x {work.shape[1]}"
-    log(f"[main] (h) B4 alone at {res['b4_shape']} (channel-major): {ms:.4f} ms, bound "
-        f"{res['b4_bound'][0]:.4f} ms by {res['b4_bound'][1]}")
+    log(f"[main] (h) B4 alone (channel-major): {b4_time(ms, res['b4_shape'], counts, res['b4_bound'])}")
     return res, total
 
 
@@ -1450,7 +1520,9 @@ def ragged_kernels(main, check_err):
     rg, chk = main["ragged"], check_err["ragged"]
     log(f"[kernels] clock_ragged (B4): {rg['b4_ms']:.4f} ms at {rg['b4_shape']} (bound "
         f"{rg['b4_bound'][0]:.4f} ms); at the check size {json.dumps(chk)}; time-major over path "
-        f"(a)'s block {main['b4_b2'][0]:.4f} ms (bound {main['b4_b2'][1][0]:.4f} ms), equal to B2")
+        f"(a)'s block {main['b4_b2'][0]:.4f} ms (bound {main['b4_b2'][1][0]:.4f} ms), equal to B2; "
+        f"at the streamer's block {main['streams']['exact']['b4_ms']:.4f} ms; by lanes x "
+        f"{CHECK_BLOCK} {json.dumps(check_err['b4_lanes'])} ms [{card()}]")
     return [dict(
         name="clock_ragged", route="cuda", source="sdrmodem_tpu_torch/csrc/clock.cu",
         replaces="sdrmodem_tpu/ops/pallas_clock.py:104", launches=main["totals"]["clock_ragged"],
@@ -1707,12 +1779,8 @@ def main() -> int:
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
     log(f"[total] {time.perf_counter() - t_all:.3f} s")
-    print(smi)
+    print(card())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -2,37 +2,49 @@
 // the ragged walk (B4), each lane on its own.  Both advance a lane with
 // mm_step.cuh's step, and this file is compiled with -fmad=false so no f32
 // multiply and add are contracted into an FMA, which would change the
-// chaotic M&M trajectory.
+// chaotic M&M trajectory.  Each lane is one chain of dependent symbol
+// steps: the next read position depends on this step's floor(mu).
 //
 // B2 replaces the TPU kernel sdrmodem_tpu/ops/pallas_clock.py:
 // _mm_chunked_kernel (wrapper clock_mm_chunked_tpu): every lane over one
-// full block, in the chunk partition of the JAX package.
+// full block, in the chunk partition of the JAX package.  Bound on an
+// H100: at 128 lanes x 2^19 decimated samples it reads its input once
+// (256 MiB) and writes the f32 symbol slots (~70 MB), ~0.1 ms of memory
+// traffic; the arithmetic is a few tens of operations a symbol.  What
+// bounds it is neither: the time is the chain's length (~105k symbols a
+// lane) times one step's latency.  Design: a plain first version.  One
+// thread owns one lane for the whole buffer and walks it in order with
+// omega, mu, last and the read position in registers; the 129x8 bank sits
+// in shared memory.  The chunks of the JAX kernel are kept as output rows
+// only: a chunk closes when the read position passes its end, which
+// continues the stream exactly as the JAX suffix hand-off does
+// (clock_recovery.py:540-547), so one pass gives the JAX symbols, counts
+// and final resid; its symbols are stored time-major, (n_chunks, K, C).
 //
 // B4 replaces sdrmodem_tpu/ops/pallas_clock.py:_mm_kernel (wrapper
-// clock_mm_tpu): every lane over its own prepared buffer y from ii0, frozen
-// once ii > n_valid - 8, with y channel-major (C, L) or time-major (L, C).
-// The TPU kernel's one-hot window ladder and overflow flag, its Farrow
-// polynomial bank and its 1e30 NaN sentinel exist because the TPU's vector
-// unit has no gathers; this walk reads each lane's window directly and
-// indexes the bank table, so none of them is carried over.
-//
-// Bound on an H100: at 128 lanes x 2^19 decimated samples either walk
-// reads its input once (256 MiB) and writes the f32 symbol slots (~70 MB),
-// ~0.1 ms of memory traffic; the arithmetic is a few tens of operations a
-// symbol.  What bounds them is neither: each lane is one chain of ~105k
-// dependent symbols (the next read position depends on this symbol's
-// floor(mu)), so the time is the chain's length times one step's latency.
-//
-// Design: a plain first version.  One thread owns one lane for the whole
-// buffer and walks it in order with omega, mu, last and the read position
-// in registers; the 129x8 bank sits in shared memory.  B2 keeps the chunks
-// of the JAX kernel as output rows only: a chunk closes when the read
-// position passes its end, which continues the stream exactly as the JAX
-// suffix hand-off does (clock_recovery.py:540-547), so one pass gives the
-// JAX symbols, counts and final resid; its symbols are stored time-major,
-// (n_chunks, K, C).  B4 reads and writes through the strides it is given,
-// so in the time-major layout neighbouring lanes touch neighbouring words
-// and in the channel-major one each lane's reads are contiguous.
+// clock_mm_tpu): every lane over its own prepared buffer y from ii0,
+// frozen once ii > n_valid - 8, with y channel-major (C, L) or time-major
+// (L, C).  The TPU kernel's one-hot window ladder and overflow flag, its
+// Farrow polynomial bank and its 1e30 NaN sentinel exist because the TPU's
+// vector unit has no gathers; this walk reads each lane's window directly
+// and indexes the bank table, so none of them is carried over.  Bound on
+// an H100: the bytes, 0.100 ms at 128 lanes x 524353 (the input read once,
+// the symbol slots written once); the real floor is the chain, the lane's
+// symbols times one step from shared memory.  Design: one thread block a
+// lane, so the lanes spread over the SMs, and the lane's rows staged in
+// shared memory ahead of the walk, so no device-memory read sits on the
+// chain.  Warp 0 stages rows into a ring of two slots; thread 0 of warp 1
+// walks.  Slot g holds rows [g*S, (g+1)*S + 8) (rows past len as 0), so a
+// window starting in [g*S, (g+1)*S) lies wholly in it.  While the walker
+// steps through slot g, warp 0 fills slot g + 1 into the other buffer;
+// one barrier a slot hands them over, as the fused step (step.cu) hands
+// its y3 tiles to its clock thread.  A read position outside the current
+// slot (gain_mu * mm is unbounded, so the stride can run backwards or
+// jump) reads device memory instead: both paths read the same floats
+// through the same mm_step, so the bits never depend on S.  In the
+// channel-major layout warp 0 reads a slot as contiguous words; in the
+// time-major one each row is one float of a 32-byte sector, ~2 GB of
+// sector traffic at 128 x 524353 (~0.7 ms at 3.35 TB/s, off the chain).
 
 #include "mm_step.cuh"
 
@@ -91,36 +103,80 @@ __global__ void mm_clock_kernel(const float* __restrict__ y3, int n, int lanes,
 
 // B4: lane l reads y[row * row_stride + l * lane_stride] for row < len
 // (rows past it read as 0) and writes symbol k to
-// outs[k * out_k_stride + l * out_lane_stride].
-__global__ void mm_ragged_kernel(const float* __restrict__ y, long long len, int lanes,
-                                 long long row_stride, long long lane_stride,
-                                 const int* __restrict__ n_valid, const int* __restrict__ ii0,
-                                 const float* __restrict__ omega_in,
-                                 const float* __restrict__ mu_in,
-                                 const float* __restrict__ last_in,
-                                 const float* __restrict__ bank, int num_symbols, int k_out,
-                                 long long out_k_stride, long long out_lane_stride, MmParams p,
-                                 float* __restrict__ outs, int* __restrict__ counts,
-                                 float* __restrict__ omega_out, float* __restrict__ mu_out,
-                                 float* __restrict__ last_out, int* __restrict__ ii_out) {
-  __shared__ float s_bank[kMmBankSize];
-  mm_load_bank(s_bank, bank);
+// outs[k * out_k_stride + l * out_lane_stride].  One block a lane.
+constexpr int kStagers = 32;               // warp 0
+constexpr int kWalker = kStagers;          // thread 0 of warp 1
+constexpr int kRaggedThreads = 2 * kStagers;
 
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
+__global__ void __launch_bounds__(kRaggedThreads)
+    mm_ragged_kernel(const float* __restrict__ y, long long len, long long row_stride,
+                     long long lane_stride, const int* __restrict__ n_valid,
+                     const int* __restrict__ ii0, const float* __restrict__ omega_in,
+                     const float* __restrict__ mu_in, const float* __restrict__ last_in,
+                     const float* __restrict__ bank, int num_symbols, int k_out,
+                     long long out_k_stride, long long out_lane_stride, int slot_rows,
+                     MmParams p, float* __restrict__ outs, int* __restrict__ counts,
+                     float* __restrict__ omega_out, float* __restrict__ mu_out,
+                     float* __restrict__ last_out, int* __restrict__ ii_out) {
+  extern __shared__ float sm[];  // the bank, then two slots of slot_rows + 8 rows
+  __shared__ int s_count;
+  float* s_bank = sm;
+  const int lane = blockIdx.x, tid = threadIdx.x;
+  const int slot_len = slot_rows + kMmTaps;
   const float* yl = y + lane * lane_stride;
-  float* ol = outs + lane * out_lane_stride;
+  auto stage = [&](long long g) {  // slot g into its buffer, by warp 0
+    float* slot = sm + kMmBankSize + (g & 1) * slot_len;
+    const long long lo = g * slot_rows;
+    for (int j = tid; j < slot_len; j += kStagers)
+      slot[j] = lo + j < len ? yl[(lo + j) * row_stride] : 0.f;
+  };
+
   const long long last_row = (long long)n_valid[lane] - kMmTaps;  // the lane freezes past it
   MmLane s{omega_in[lane], mu_in[lane], last_in[lane], (long long)ii0[lane]};
-  auto sample = [&](long long row) { return row < len ? yl[row * row_stride] : 0.f; };
+  long long g = (s.ii < 0 ? 0 : s.ii) / slot_rows;  // the slot that holds the first window
+  if (tid < kStagers) stage(g);
+  mm_load_bank(s_bank, bank);  // ends with __syncthreads
+
+  float* ol = outs + lane * out_lane_stride;
   int k = 0;
-  for (; k < num_symbols && s.ii <= last_row; ++k) ol[k * out_k_stride] = mm_step(s_bank, p, s, sample);
-  counts[lane] = k;
-  for (int j = k; j < k_out; ++j) ol[j * out_k_stride] = 0.f;
-  omega_out[lane] = s.omega;
-  mu_out[lane] = s.mu;
-  last_out[lane] = s.last;
-  ii_out[lane] = (int)s.ii;
+  bool done = false;
+  if (tid == kWalker) {
+    done = num_symbols == 0 || s.ii > last_row;
+    s_count = 0;
+  }
+  auto from_device = [&](long long row) { return row < len ? yl[row * row_stride] : 0.f; };
+  // each pass: warp 0 stages slot g + 1 while the walker steps through slot
+  // g; the barrier hands slot g + 1 over and tells every thread when the
+  // walker is done (frozen, or num_symbols steps)
+  for (; !__syncthreads_or(done); ++g) {
+    if (tid < kStagers) {
+      stage(g + 1);
+    } else if (tid == kWalker) {
+      const float* slot = sm + kMmBankSize + (g & 1) * slot_len;
+      const long long lo = g * slot_rows, hi = lo + slot_rows;
+      auto staged = [&](long long row) { return slot[row - lo]; };
+      while (!done) {
+        const long long base = s.ii < 0 ? 0 : s.ii;
+        if (base >= hi) break;  // a later slot holds the window
+        ol[k * out_k_stride] =
+            base >= lo ? mm_step(s_bank, p, s, staged) : mm_step(s_bank, p, s, from_device);
+        ++k;
+        done = k == num_symbols || s.ii > last_row;
+      }
+      s_count = k;
+    }
+  }
+
+  const int count = s_count;
+  if (tid < kStagers) {
+    for (int j = count + tid; j < k_out; j += kStagers) ol[j * out_k_stride] = 0.f;
+  } else if (tid == kWalker) {
+    counts[lane] = count;
+    omega_out[lane] = s.omega;
+    mu_out[lane] = s.mu;
+    last_out[lane] = s.last;
+    ii_out[lane] = (int)s.ii;
+  }
 }
 
 }  // namespace
@@ -150,24 +206,25 @@ extern "C" int clock_forward(const float* y3, int n, int lanes, const float* suf
 }
 
 // B4 over y with per-lane n_valid, ii0, omega, mu and last (C,); at most
-// num_symbols steps a lane, k_out >= num_symbols symbol slots.  Writes outs,
-// counts (C,) and the final omega, mu, last and read position (C,).
-// Returns cudaGetLastError() after the launch.
+// num_symbols steps a lane, k_out >= num_symbols symbol slots, rows staged
+// slot_rows at a time.  Writes outs, counts (C,) and the final omega, mu,
+// last and read position (C,).  Returns cudaGetLastError() after the
+// launch.
 extern "C" int clock_ragged_forward(const float* y, long long len, int lanes,
                                     long long row_stride, long long lane_stride,
                                     const int* n_valid, const int* ii0, const float* omega_in,
                                     const float* mu_in, const float* last_in, const float* bank,
                                     int num_symbols, int k_out, long long out_k_stride,
-                                    long long out_lane_stride, float omega_mid, float omega_lim,
-                                    float gain_omega, float gain_mu, float* outs, int* counts,
-                                    float* omega_out, float* mu_out, float* last_out,
-                                    int* ii_out, void* stream_handle) {
+                                    long long out_lane_stride, int slot_rows, float omega_mid,
+                                    float omega_lim, float gain_omega, float gain_mu,
+                                    float* outs, int* counts, float* omega_out, float* mu_out,
+                                    float* last_out, int* ii_out, void* stream_handle) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const int grid = (lanes + kThreads - 1) / kThreads;
+  const size_t smem = sizeof(float) * (kMmBankSize + 2 * (size_t)(slot_rows + kMmTaps));
   const MmParams p{omega_mid, omega_lim, gain_omega, gain_mu};
-  mm_ragged_kernel<<<grid, kThreads, 0, stream>>>(
-      y, len, lanes, row_stride, lane_stride, n_valid, ii0, omega_in, mu_in, last_in, bank,
-      num_symbols, k_out, out_k_stride, out_lane_stride, p, outs, counts, omega_out, mu_out,
-      last_out, ii_out);
+  mm_ragged_kernel<<<lanes, kRaggedThreads, smem, stream>>>(
+      y, len, row_stride, lane_stride, n_valid, ii0, omega_in, mu_in, last_in, bank,
+      num_symbols, k_out, out_k_stride, out_lane_stride, slot_rows, p, outs, counts,
+      omega_out, mu_out, last_out, ii_out);
   return cudaGetLastError();
 }

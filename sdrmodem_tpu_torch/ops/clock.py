@@ -17,6 +17,9 @@
   0.  ``overflow`` is always 0: the port reads every window directly and
   has no window ladder to overflow.  Its plain version is ``mm_walk_plain``
   (under the JAX scan's signature, ``dsp/clock_recovery.py:_mm_scan_core``).
+  The kernel gives each lane a thread block that walks it from rows staged
+  in shared memory ``RAGGED_SLOT_ROWS`` at a time; the slot size changes
+  no bit, only the speed.
 
 Each wrapper launches ``csrc/clock.cu`` for a CUDA tensor and runs its
 plain version for a CPU tensor.  The plain versions take one step for every
@@ -41,6 +44,9 @@ NSTEPS = 128
 
 launches = 0  # kernel launches by clock_mm_chunked; a run resets and reads it
 ragged_launches = 0  # kernel launches by clock_mm_tpu
+# rows of a lane B4 stages into shared memory at a time: two slots of
+# 4096 + 8 floats and the bank are ~37 KB a block, so ~6 blocks fit an SM
+RAGGED_SLOT_ROWS = 4096
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,6 +65,7 @@ _SIGNATURES = {
         _P, _L, _I, _L, _L,  # y, len, lanes, row stride, lane stride
         _P, _P, _P, _P, _P,  # n_valid, ii0, omega, mu, last
         _P, _I, _I, _L, _L,  # bank, num_symbols, k_out, out k stride, out lane stride
+        _I,  # slot rows
         _F, _F, _F, _F,  # omega_mid, omega_lim, gain_omega, gain_mu
         _P, _P, _P, _P, _P, _P,  # outs, counts, omega', mu', last', ii'
         _P,  # stream
@@ -351,7 +358,7 @@ def clock_mm_tpu(
         rc = lib.clock_ragged_forward(
             y.data_ptr(), length, c, strides[0], strides[1],
             n_valid.data_ptr(), ii0.data_ptr(), omega.data_ptr(), mu.data_ptr(), last.data_ptr(),
-            bank.data_ptr(), int(num_symbols), k, strides[2], strides[3],
+            bank.data_ptr(), int(num_symbols), k, strides[2], strides[3], RAGGED_SLOT_ROWS,
             float(np.float32(omega_mid)), omega_limit(omega_mid, omega_relative_limit),
             float(np.float32(gain_omega)), float(np.float32(gain_mu)),
             outs.data_ptr(), counts.data_ptr(),

@@ -18,7 +18,7 @@ kernels (B5, B6) within 1e-4 of their plain versions on I/Q and the phase
 (both carry the phase prefix in float64, summed in another order, and
 take cos/sin from two libraries), the exported history exact.  The ragged
 clock (B4) and the float64-accumulated FIR are exact: the same operations
-in the same order.  The exact streamer on the card gives the bytes it
+in the same order, at any number of B4's staged rows a slot.  The exact streamer on the card gives the bytes it
 gives on the CPU.  The fused step (B7) runs the front's and the clock's
 device code in their order: bit for bit against its plain version without
 Doppler, and against the fused front (B1) followed by B2 with and without
@@ -309,6 +309,59 @@ def test_b4_kernel_matches_plain(cuda, time_major):
     for key in ("omega", "mu", "last", "ii", "overflow"):
         assert torch.equal(fin[key], p_fin[key])
     assert counts.min() > 1000 and (outs[1, 140:160] == 0).any()
+
+
+B4_SLOT_CASES = ["scaled", "late_start", "short", "inf_nan_edge", "few_symbols", "lanes300"]
+
+
+def _b4_slot_case(case, device):
+    """_b4_args's inputs, changed so that at 64 staged rows a slot the walk
+    meets each edge of the staging: a lane scaled by 1e4 (gain_mu * mm in
+    the thousands, so strides run backwards and jump many slots), read
+    starts past the first slot, n_valid below 8 and 0, a NaN stretch and
+    an inf across slot edges, fewer steps than the lanes could take, and
+    more lanes than the card has SMs."""
+    c, n = (300, 2000) if case == "lanes300" else (37, 6000)
+    y, args, kw = _b4_args(c, n, device, 11)
+    n_valid, ii0 = args[0], args[4]
+    if case == "scaled":
+        y[2] *= 1e4
+    elif case == "late_start":
+        ii0[::2] = torch.arange(0, c, 2, device=device, dtype=torch.int32) * 37 + 64
+    elif case == "short":
+        n_valid[:4] = torch.tensor([0, 3, 7, 8], dtype=torch.int32, device=device)
+        ii0[:4] = 0
+    elif case == "inf_nan_edge":
+        y[1, 60:70] = np.nan
+        y[4, 127] = np.inf
+        y[5, 190:200] = -np.inf
+    elif case == "few_symbols":
+        kw["num_symbols"] = 50
+    return y, args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("time_major", [False, True])
+@pytest.mark.parametrize("case", B4_SLOT_CASES)
+def test_b4_small_slots_match_plain(cuda, monkeypatch, case, time_major):
+    """B4 with 64 rows a slot, so slot edges fall every dozen symbols,
+    against its plain version bit for bit: outs, counts and final state.
+    A window with a single inf sample sends a lane's state to NaN (the
+    algorithm's own rule, the same on both sides), so NaN equals NaN."""
+    monkeypatch.setattr(clock_ops, "RAGGED_SLOT_ROWS", 64)
+    y, args, kw = _b4_slot_case(case, cuda)
+    yt = torch.from_numpy(y.T.copy() if time_major else y).to(cuda)
+    outs, counts, fin = clock_ops.clock_mm_tpu(yt, *args, time_major=time_major, **kw)
+    p_outs, p_counts, p_fin = clock_ops.clock_mm_tpu_plain(yt, *args, time_major=time_major, **kw)
+    torch.cuda.synchronize()
+    pairs = [(outs, p_outs), (counts, p_counts)]
+    pairs += [(fin[k], p_fin[k]) for k in ("omega", "mu", "last", "ii")]
+    for got, want in pairs:
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    if case == "short":
+        assert counts[:3].tolist() == [0, 0, 0] and counts[3].item() == 1
+    elif case == "few_symbols":
+        assert (counts == 50).all()
 
 
 @pytest.mark.cuda
