@@ -11,7 +11,12 @@ Phases (any failure exits non-zero, and no result line is printed):
              source, all started together;
 2. check   — each kernel against its plain PyTorch version on the card at
              128 lanes x 65536 samples: the front and the clock (three
-             configurations, three blocks with carried state); B3 over the
+             configurations, three blocks with carried state; B2 bit for
+             bit); B2 where its walk meets each edge of its chunks and
+             slots (lanes scaled by 1e4 and 1e5, a late entry, NaN and inf
+             across the edges, K filling, a block of 5 chunks and 100
+             rows and one of 100 rows, 300 lanes), at its own slot size
+             and at one chunk a slot, bit for bit; B3 over the
              lucky7 LPF2, LPF1 and DC taps at strides 1 and 2 with a band
              offset, and B8; the front with Doppler tables from the raw
              lucky7 pass on 64 lanes (the other 64 without rows, which must
@@ -64,7 +69,11 @@ Phases (any failure exits non-zero, and no result line is printed):
              streamer's one-lane buffer must equal its plain version;
 5. kernels — each kernel alone at its path's shape: time, its plain
              version's time and error, its bound, and a PyTorch library
-             call's time where one computes the same function.  B7 at
+             call's time where one computes the same function.  B2 must
+             equal its plain version bit for bit at 128 x 2^20; then B2
+             alone at 128, 512, 1024 and 4096 lanes x 2^19 rows, each
+             tiled lane equal to the 128-lane run, and path (b)'s step at
+             128 and 512 lanes (ROADMAP P1).  B7 at
              128 x 2^20 with Doppler must equal B1 followed by B2 bit for
              bit, and its plain version at 128 x 65536.
 
@@ -113,6 +122,9 @@ MIXED_ATOL = 2e-6  # the NCO's cos and sin, an ulp apart (tests/test_torch_doppl
 BAND_OFFSET = 37
 SMALL_SLOT_ROWS = 64  # B4's staged rows a slot in the slot-edge gate
 B4_LANES = (128, 512, 1024)  # lanes of B4's timing alone, ROADMAP P1
+B2_EDGE_CHUNK = 256  # B2's chunk (SDRM_CLOCK_CHUNK) in its slot-edge gate
+B2_LANES = (128, 512, 1024, 4096)  # lanes of B2's timing alone, ROADMAP P1
+SERVER_LANES = (128, 512)  # lanes of path (b)'s step in the same sweep
 
 # the lucky7 pass the Doppler goldens were recorded with (tests/test_doppler.py)
 TLE = [
@@ -297,7 +309,9 @@ def check_front_and_clock(torch, dev):
             lsb = (float_to_int8(o_k).int() - float_to_int8(o_p.permute(2, 0, 1)).int()).abs().max().item()
             err["clock_lsb"] = max(err["clock_lsb"], lsb)
             err["clock_f32"] = max(err["clock_f32"], (o_k - o_p.permute(2, 0, 1)).abs().max().item())
-            need(torch.equal(ck_k.resid, fin_p[3]), f"{name} block {blk}: clock resid differs")
+            need(torch.equal(o_k, o_p.permute(2, 0, 1)) and all(
+                torch.equal(a, b) for a, b in zip((ck_k.omega, ck_k.mu, ck_k.last_sample, ck_k.resid), fin_p)),
+                f"{name} block {blk}: B2 differs from its plain version")
             symbols += int(c_k.sum().item())
             st_k = DemodStateFull(*f_k, ck_k)
             st_p = DemodStateFull(*f_p, ck_k)
@@ -307,7 +321,6 @@ def check_front_and_clock(torch, dev):
         need(err["lpf1"] == 0.0, f"{name}: lpf1_hist differs")
         need(err["quad_prev"] == 0.0, f"{name}: quad_prev differs by {err['quad_prev']}")
         need(max(err["lpf2"], err["dc"]) <= FRONT_ATOL, f"{name}: FIR tail error")
-        need(err["clock_lsb"] <= 1, f"{name}: clock symbols {err['clock_lsb']} LSB apart")
         need(symbols > 0, f"{name}: the clock emitted no symbols")
 
 
@@ -586,8 +599,89 @@ def b4_lanes(torch, y_cm, state, kw):
     return res
 
 
+def same_bits(torch, a, b):
+    """Whether two tensors are equal bit for bit, NaN equal to NaN."""
+    if a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+def check_b2_slots(torch, dev):
+    """B2 against its plain version bit for bit (symbols, counts, final
+    state; NaN equal to NaN) where its walk meets each edge of its chunks
+    and slots: the check's lucky7 y3, 128 lanes x 32768 rows in chunks of
+    B2_EDGE_CHUNK, lane 2 scaled by 1e4 (strides run back past a chunk's
+    first row), lane 3 by 1e5 and lane 4 entering 1500 rows in (reads jump
+    past whole chunks), NaN and inf across chunk and slot edges on lanes
+    5-7; the same with K = 20 (the slots fill and the hand-off clips resid
+    to sfx - 1), a block of 5 chunks and 100 rows, one of 100 rows, and 300
+    lanes at their own chunk (680 rows).  Each at B2's own slot size and
+    at one chunk a slot."""
+    import os
+
+    from sdrmodem_tpu_torch.dsp.clock_recovery import chunk_plan
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.ops import clock as clock_ops
+    from sdrmodem_tpu_torch.ops.front import fused_front
+
+    c = LANES
+    pipe = DemodPipeline(FskDemodConfig(*LUCKY7), CHECK_BLOCK, device=dev)
+    p = pipe.config.clock_params()
+    st = pipe.init_full_state(c)
+    y3, _ = fused_front(capture_lanes(torch, dev, CHECK_BLOCK, c), *st[:4], pipe.front_taps)
+    y3[:, 2] *= 1e4
+    y3[:, 3] *= 1e5
+    y3[250:262, 5] = float("nan")
+    y3[511, 6] = float("inf")
+    y3[760:775, 7] = float("-inf")
+    y3[1020:1030, 5] = float("nan")
+    ck = st.clock
+    resid = ck.resid.clone()
+    resid[4] = -1500
+    state = (ck.suffix, ck.omega, ck.mu, ck.last_sample, resid)
+    r = -(-300 // c)
+    wide = (y3.repeat(1, r)[:, :300].contiguous(), ck.suffix.repeat(1, r)[:, :300].contiguous(),
+            *(v.repeat(r)[:300].contiguous() for v in state[1:]))
+    cases = [(f"{c} x {y3.shape[0]}", y3, state, B2_EDGE_CHUNK, None),
+             ("K = 20", y3, state, B2_EDGE_CHUNK, 20),
+             ("5 chunks and 100 rows", y3[: 5 * B2_EDGE_CHUNK + 100], state, B2_EDGE_CHUNK, None),
+             ("100 rows", y3[:100], state, B2_EDGE_CHUNK, None),
+             ("300 lanes", wide[0], wide[1:], None, None)]
+    slot_rows, env = clock_ops.CLOCK_SLOT_ROWS, os.environ.get("SDRM_CLOCK_CHUNK")
+    res = {}
+    try:
+        for name, y, args, chunk, k in cases:
+            if chunk is None:
+                os.environ.pop("SDRM_CLOCK_CHUNK", None)
+            else:
+                os.environ["SDRM_CLOCK_CHUNK"] = str(chunk)
+            plan = chunk_plan(*y.shape, ck.suffix.shape[0], **p, num_symbols=k)
+            want = clock_ops.clock_mm_chunked_plain(y, *args, pipe.bank, **plan)
+            for rows in (slot_rows, plan["chunk"]):
+                clock_ops.CLOCK_SLOT_ROWS = rows
+                got = clock_ops.clock_mm_chunked(y, *args, pipe.bank, **plan)
+                torch.cuda.synchronize()
+                need(all(same_bits(torch, a, b) for a, b in [*zip(got[:2], want[:2]), *zip(got[2], want[2])]),
+                     f"B2 ({name}, {rows} rows a slot) differs from its plain version")
+            res[name] = dict(chunk=plan["chunk"], k=plan["num_symbols"], symbols=int(want[1].sum().item()),
+                             full_chunks=int((want[1] == plan["num_symbols"]).sum().item()))
+    finally:
+        clock_ops.CLOCK_SLOT_ROWS = slot_rows
+        if env is None:
+            os.environ.pop("SDRM_CLOCK_CHUNK", None)
+        else:
+            os.environ["SDRM_CLOCK_CHUNK"] = env
+    log(f"[check] B2 at its slot edges, equal to its plain version bit for bit at {slot_rows} rows a "
+        f"slot and at one chunk a slot: {json.dumps(res)}")
+
+
 def phase_check(torch, dev):
     check_front_and_clock(torch, dev)
+    check_b2_slots(torch, dev)
     check_fir(torch, dev)
     check_doppler_front(torch, dev)
     err = check_tx(torch, dev)
@@ -1594,6 +1688,64 @@ def check_step_plain(torch, dev):
     return plain_ms, max(err.values())
 
 
+def b2_lanes(torch, pipe, y3):
+    """B2 alone on phase 5's y3 (2^19 rows of 128 lanes, with Doppler)
+    tiled to each of B2_LANES, from a fresh state, each at the JAX
+    package's chunk for its lanes (2048, 512, 256 and 64 rows): whether
+    lanes past the card's 132 SMs are free.  Every tiled lane's symbols
+    must equal its 128-lane original's bit for bit (on this y3 no stride
+    runs back past a chunk's first row and no chunk fills its slots, so
+    the partition only moves symbols between rows).  Returns {lanes: ms}."""
+    from sdrmodem_tpu_torch.dsp.clock_recovery import clock_mm_batched_full
+
+    p = pipe.config.clock_params()
+    c0, n = y3.shape[1], y3.shape[0]
+    res, base = {}, None
+    for lanes in B2_LANES:
+        y = y3.repeat(1, lanes // c0)
+        st = pipe.init_full_state(lanes).clock
+        clock_mm_batched_full(y, st, bank=pipe.bank, **p)  # warm-up
+        ms, (outs, counts, _) = cuda_ms(torch, lambda: clock_mm_batched_full(y, st, bank=pipe.bank, **p), 3)
+        k = outs.shape[2]
+        flat = outs[torch.arange(k, device=y.device)[None, None, :] < counts[:, :, None]]
+        totals = counts.sum(1)
+        if base is None:
+            base = (flat, totals)
+        r = lanes // c0
+        need(torch.equal(totals, base[1].repeat(r)) and torch.equal(flat, base[0].repeat(r)),
+             f"B2 at {lanes} lanes differs from the {c0}-lane run")
+        symbols = int(totals.sum().item())
+        bnd = bound(*clock_cost(n, lanes, st.suffix.shape[0], counts.shape[1], k, symbols))
+        res[lanes] = ms
+        log(f"[kernels] B2 lanes (chunk {n // counts.shape[1]}): {b4_time(ms, f'{lanes} x {n}', totals, bnd)}")
+        del y, outs, counts, flat
+    return res
+
+
+def server_lanes(torch, dev):
+    """Path (b)'s step (front "fused", Doppler rows on every lane) at each of
+    SERVER_LANES, one warm-up and MAIN_STEPS timed steps, outside the
+    counted runs.  Returns {lanes: ms a step}."""
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+
+    bs = SERVER_BLOCK
+    spipe = DemodPipeline(FskDemodConfig(*LUCKY7), bs, device=dev)
+    raw = capture_lanes(torch, dev, bs, 1, "lucky7.cf32")
+    x_srv = torch.stack([raw[:, 0], raw[:, 1]]).contiguous()
+    step = spipe.make_batched_step_full("pallas", doppler=True, layout="fanout")
+    res = {}
+    for lanes in SERVER_LANES:
+        dops = lane_dopplers(range(lanes))
+        tables = [doppler_tables(dops, bs, lanes, dev) for _ in range(MAIN_STEPS + 1)]
+        ms, first, _, _ = drive(torch, step, spipe.init_full_state(lanes), [(x_srv, t) for t in tables])
+        need(int(first[1].sum().item()) > 0.9 * lanes * (bs // 2) / 5, f"(b) at {lanes} lanes: too few symbols")
+        res[lanes] = ms
+        log(f"[kernels] (b) server step at {lanes} lanes x {bs}: {ms:.4f} ms/step (CUDA events), "
+            f"{lanes * bs / (ms * 1e-3) / 1e6:.1f} Msamples/s [{card()}]")
+    return res
+
+
 def phase_kernels(torch, dev, main):
     """Each kernel alone at its path's shape, against its plain version."""
     import torch.nn.functional as F
@@ -1677,7 +1829,7 @@ def phase_kernels(torch, dev, main):
     )
     plan = chunk_plan(*y3.shape, ck.suffix.shape[0], **p)
     t0 = time.perf_counter()
-    clock_plain_ms, (o_p, c_p, _) = cuda_ms(
+    clock_plain_ms, (o_p, c_p, fin_p) = cuda_ms(
         torch,
         lambda: clock_ops.clock_mm_chunked_plain(
             y3, ck.suffix, ck.omega, ck.mu, ck.last_sample, ck.resid, pipe.bank, **plan
@@ -1687,8 +1839,13 @@ def phase_kernels(torch, dev, main):
     log(f"[kernels] plain clock at full width took {time.perf_counter() - t0:.3f} s wall")
     need(torch.equal(counts, c_p.T), "clock at full width: counts differ from plain")
     clock_err = (outs - o_p.permute(2, 0, 1)).abs().max().item()
-    need(clock_err * 127 <= 1.0, f"clock at full width: {clock_err}")
+    need(torch.equal(outs, o_p.permute(2, 0, 1)) and all(
+        torch.equal(a, b) for a, b in zip((ck_fin.omega, ck_fin.mu, ck_fin.last_sample, ck_fin.resid), fin_p)),
+        f"B2 at full width differs from its plain version (max |diff| {clock_err})")
     symbols = int(counts.sum().item())
+    del o_p, c_p
+    lanes = b2_lanes(torch, pipe, y3)
+    lanes["server step"] = server_lanes(torch, dev)
 
     # ---- step (B7): the same front with Doppler and clock in one launch,
     # bit for bit against the pair just run (B1 with Doppler, then B2)
@@ -1733,7 +1890,7 @@ def phase_kernels(torch, dev, main):
         dict(name="clock", route="cuda", source="sdrmodem_tpu_torch/csrc/clock.cu",
              replaces="sdrmodem_tpu/ops/pallas_clock.py:326", launches=launches["clock"],
              max_abs_err=clock_err, ms=clock_ms, plain_ms=clock_plain_ms, bound_ms=c_bound,
-             bound_by=c_by, library_ms=None),
+             bound_by=c_by, library_ms=None, lanes_ms=lanes),
         dict(name="fir", route="cuda", source="sdrmodem_tpu_torch/csrc/fir.cu",
              replaces="sdrmodem_tpu/ops/pallas_fir.py:119", launches=launches["fir"],
              max_abs_err=fir_err, ms=fir_ms, plain_ms=fir_plain_ms, bound_ms=r_bound,

@@ -7,8 +7,8 @@
 // (wrapper fused_step_call).  It gives the bits of the front end (front.cu,
 // B1) followed by the chunked clock (clock.cu, B2): every stage sums
 // through the same device functions (nco.cuh, fir.cuh, quad.cuh,
-// mm_step.cuh) in the same order, and the clock's chunk partition moves
-// symbols between output rows without changing them.
+// mm_step.cuh) in the same order, and it walks each clock chunk through
+// B2's own chunk walk (mm_chunk.cuh), in the same partition.
 //
 // Bound on an H100: the front's bound (front.cu: ~1.5 ms of f32 operations
 // at 128 lanes x 2^20 with the lucky7 taps) plus the bytes of the IQ block
@@ -45,7 +45,7 @@
 #include <math.h>
 
 #include "fir.cuh"
-#include "mm_step.cuh"
+#include "mm_chunk.cuh"
 #include "nco.cuh"
 #include "quad.cuh"
 
@@ -189,20 +189,14 @@ __device__ void front_tile(const StepParams& p, const Layout& L, float* sm, int 
   }
 }
 
-// The clock over chunk t of lane c from the slot that holds it, as B2
-// walks it (clock.cu:mm_clock_kernel): a chunk closes when the read
-// position passes its end or its k_max slots are full.
+// The clock over chunk t of lane c from the slot that holds its work
+// buffer [the previous chunk's last sfx rows | the chunk], walked as B2
+// walks it (mm_chunk.cuh), the read position s.ii in the slot's rows.
 __device__ void clock_chunk(const StepParams& p, const float* bank, const float* slot, int t,
                             MmLane& s) {
   const int c = blockIdx.x, lanes = p.lanes, k_max = p.k_max;
-  const long long off = (long long)t * p.chunk;  // stream row of the slot's first row
-  const long long end = p.sfx + (long long)(t + 1) * p.chunk;
-  auto sample = [&](long long row) { return slot[row - off]; };
   float* outs = p.outs + (long long)t * k_max * lanes + c;
-  int cnt = 0;
-  for (; s.ii <= end - kMmTaps && cnt < k_max; ++cnt) outs[(long long)cnt * lanes] = mm_step(bank, p.mm, s, sample);
-  // full slots: the hand-off clips the carried resid to sfx - 1
-  if (cnt >= k_max && s.ii < end - (p.sfx - 1)) s.ii = end - (p.sfx - 1);
+  const int cnt = mm_chunk(bank, p.mm, s, slot, p.sfx + p.chunk, p.sfx, k_max, outs, lanes);
   p.counts[(long long)t * lanes + c] = cnt;
   for (int k = cnt; k < k_max; ++k) outs[(long long)k * lanes] = 0.f;
 }
@@ -234,7 +228,7 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(const StepParams p
   }
   mm_load_bank(sm + L.bank, p.bank);  // ends with __syncthreads
 
-  // the read position in the stream [suffix | y3]
+  // the read position in chunk 0's slot [suffix | chunk 0]
   MmLane s{p.omega[c], p.mu[c], p.last[c], (long long)sfx - p.resid[c]};
   for (int g = 0; g <= n_tiles; ++g) {
     if (tid < kProducers) {
@@ -250,8 +244,7 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(const StepParams p
     p.omega_out[c] = s.omega;
     p.mu_out[c] = s.mu;
     p.last_out[c] = s.last;
-    const long long resid = sfx + (long long)n_tiles * chunk - s.ii;
-    p.resid_out[c] = (int)(resid < sfx - 1 ? resid : sfx - 1);
+    p.resid_out[c] = (int)(sfx - s.ii);  // the last chunk's hand-off
   }
   const float* last_slot = sm + L.slots + ((n_tiles - 1) & 1) * L.slot_rows;
   for (int k = tid; k < sfx; k += kThreads) p.suffix_out[(long long)k * lanes + c] = last_slot[chunk + k];

@@ -466,8 +466,11 @@ class DemodPipeline:
         at a time, its FIRs through B3) or "step" (``ops/step.py:
         fused_step``, B7: the front and the clock in one kernel, y3 kept on
         the chip, the clock in chunks of ``chunk`` decimated rows).  All
-        three give the same symbol stream, bit for bit; "step" splits it into
-        chunks of ``chunk`` rows where the others take ``clock_chunk(C)``.
+        three give the same symbol stream, bit for bit, at the same chunk;
+        "step" splits it into chunks of ``chunk`` rows where the others take
+        ``clock_chunk(C)``, which moves symbols between rows without
+        changing them unless a stride runs back past a chunk's first row
+        (each chunk reads only its own rows) or a chunk's K slots fill.
         As in the JAX package, "step" with ``clock_backend="scan"`` runs
         "fused" (the step's clock is the chunked kernel).  "step" needs a
         block of whole chunks, ``block % (d * chunk) == 0``, and raises

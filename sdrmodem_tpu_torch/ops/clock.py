@@ -6,8 +6,13 @@
   (n_chunks, C) i32, (omega, mu, last, resid) each (C,)).  The plain
   version walks the block chunk by chunk, each chunk as the JAX scan
   backend does (``dsp/clock_recovery.py:_clock_full_one``): K masked steps
-  over [suffix | chunk], a lane freezing once its read position passes the
-  chunk's end.
+  over the chunk's work buffer [the sfx rows before it | the chunk], a lane
+  freezing once its read position passes the buffer's end, a read position
+  below the buffer's first row reading that row.  The kernel gives each
+  lane a thread block that stages whole chunks into shared memory,
+  ``CLOCK_SLOT_ROWS`` rows of them at a time, and walks each chunk in its
+  own buffer as the plain version does (``csrc/mm_chunk.cuh``); the slot
+  size changes no bit, only the speed.
 - ``clock_mm_tpu`` (B4), counterpart of ``pallas_clock.py:clock_mm_tpu``:
   the ragged walk, every lane over its own prepared buffer from ``ii0``,
   frozen once ii > n_valid - 8.  Returns (outs (C, K) f32, counts (C,)
@@ -47,6 +52,10 @@ ragged_launches = 0  # kernel launches by clock_mm_tpu
 # rows of a lane B4 stages into shared memory at a time: two slots of
 # 4096 + 8 floats and the bank are ~37 KB a block, so ~6 blocks fit an SM
 RAGGED_SLOT_ROWS = 4096
+# rows of y3 a slot of B2 holds at least: max(1, CLOCK_SLOT_ROWS // chunk)
+# whole chunks, so at the small chunks of many lanes (64 rows at 4096) a
+# barrier still comes every few hundred symbols; ~37 KB a block, as B4
+CLOCK_SLOT_ROWS = 4096
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,7 +65,7 @@ _SIGNATURES = {
     "clock_forward": [
         _P, _I, _I, _P, _I,  # y3, n, lanes, suffix, sfx
         _P, _P, _P, _P,  # omega, mu, last, resid
-        _P, _I, _I, _I,  # bank, chunk, n_chunks, k_max
+        _P, _I, _I, _I, _I,  # bank, chunk, n_chunks, k_max, chunks a slot
         _F, _F, _F, _F,  # omega_mid, omega_lim, gain_omega, gain_mu
         _P, _P, _P, _P, _P, _P,  # outs, counts, omega', mu', last', resid'
         _P,  # stream
@@ -134,7 +143,8 @@ def clock_mm_chunked_plain(
     y3, suffix, omega, mu, last, resid, bank, *,
     chunk, num_symbols, omega_mid, omega_lim, gain_omega, gain_mu,
 ):
-    """Plain PyTorch M&M over one block, vectorised over lanes."""
+    """Plain PyTorch M&M over one block, vectorised over lanes, chunk by
+    chunk, each chunk in the coordinates of its work buffer."""
     n, c = y3.shape
     sfx = suffix.shape[0]
     n_chunks = max(1, -(-n // chunk))
@@ -218,7 +228,7 @@ def _clock_cuda(
         rc = lib.clock_forward(
             y3.data_ptr(), n, c, suffix.data_ptr(), sfx,
             omega.data_ptr(), mu.data_ptr(), last.data_ptr(), resid.data_ptr(),
-            bank.data_ptr(), chunk, n_chunks, num_symbols,
+            bank.data_ptr(), chunk, n_chunks, num_symbols, max(1, CLOCK_SLOT_ROWS // chunk),
             omega_mid, omega_lim, gain_omega, gain_mu,
             outs.data_ptr(), counts.data_ptr(),
             fin[0].data_ptr(), fin[1].data_ptr(), fin[2].data_ptr(), resid_out.data_ptr(),

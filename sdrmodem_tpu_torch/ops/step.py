@@ -20,8 +20,11 @@ state {omega, mu, last, resid, suffix} with the next block's suffix.
   ``clock_mm_chunked_plain`` in chunks of ``chunk``.
 
 The kernel gives the bits of the fused front (B1) followed by the chunked
-clock (B2): the same device functions in the same order, and a chunk
-partition that moves symbols between output rows without changing them.
+clock (B2) at the same ``chunk``: the same device functions in the same
+order, each clock chunk walked by B2's own chunk walk
+(``csrc/mm_chunk.cuh``).  Another partition moves symbols between output
+rows without changing them, unless a stride runs back past a chunk's first
+row (each chunk reads only its own work buffer) or a chunk's K slots fill.
 No environment variable is read: ``chunk`` is an argument.
 """
 

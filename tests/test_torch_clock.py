@@ -198,3 +198,81 @@ def test_clock_chunk_size_invariant(monkeypatch, small_chunk):
     assert torch.equal(a, b)
     for x, y in zip(sa, sb):
         assert torch.equal(x, y)
+
+
+def _scaled_lane_y3():
+    """5 lanes x 4096 rows of a noisy two-level signal at sps 5, lane 2
+    scaled by 1e4: there gain_mu * mm runs in the hundreds, so strides run
+    backwards past a chunk's first row and jump past whole chunks."""
+    rng = np.random.default_rng(0)
+    bits = np.repeat(rng.choice([-1.0, 1.0], (4096 // 5 + 8, 5)), 5, axis=0)[:4096]
+    y = (bits + 0.2 * rng.standard_normal((4096, 5))).astype(np.float32)
+    y[:, 2] *= 1e4
+    return y
+
+
+def test_chunked_plain_equals_scan_backend_on_scaled_lane(monkeypatch):
+    """B2's plain version (``clock_mm_batched_full`` "pallas" on the CPU)
+    and the scan backend (B4's plain walk a chunk) walk each chunk in its
+    own work buffer [suffix | chunk], so they agree bit for bit even where
+    a stride runs back past the chunk's first row, read there as the
+    buffer's first row.  The strides are recorded to show that lane 2
+    reaches that row (a read position below 0 in its chunk's buffer) and
+    the other lanes never do."""
+    monkeypatch.setenv("SDRM_CLOCK_CHUNK", "256")
+    y3 = torch.from_numpy(_scaled_lane_y3())
+    p = JaxConfig(*LUCKY7).clock_params()
+    state = initial_full_state(p["omega"], 5, p["mu"], device="cpu")
+    strides, step = [], clock_ops._mm_step_plain
+
+    def recorded(*args):
+        out = step(*args)
+        strides.append(out[1])
+        return out
+
+    monkeypatch.setattr(clock_ops, "_mm_step_plain", recorded)
+    outs, counts, fin = clock_mm_batched_full(y3, state, bank=BANK, **p)
+    monkeypatch.setattr(clock_ops, "_mm_step_plain", step)
+    s_outs, s_counts, s_fin = clock_mm_batched_full(y3, state, bank=BANK, backend="scan", **p)
+    assert torch.equal(outs, s_outs) and torch.equal(counts, s_counts)
+    for a, b in zip(fin, s_fin):
+        assert torch.equal(a, b)
+
+    # each chunk's read positions in its own buffer, from the recorded strides
+    sfx, k = state.suffix.shape[0], outs.shape[2]
+    ii, lowest = sfx - state.resid.long(), []
+    for t, chunk_strides in enumerate(torch.stack(strides).split(k)):
+        pos = ii + chunk_strides.cumsum(0)
+        lowest.append(torch.minimum(ii, pos.min(0).values))
+        ii = sfx - torch.clamp(sfx + min(256, 4096 - 256 * t) - pos[-1], max=sfx - 1)
+    lowest = torch.stack(lowest).min(0).values
+    assert lowest[2] < 0 and (lowest[[0, 1, 3, 4]] >= 0).all()
+    assert counts.shape == (5, 16) and counts.sum() > 4 * 700
+
+
+def test_clock_matches_jax_scan_on_scaled_lane(monkeypatch):
+    """The scaled-lane input through JAX's scan backend (``_clock_full_one``
+    chunk by chunk) and the port's clock, held as in
+    ``test_clock_plain_matches_jax_scan`` on the four lanes at their
+    natural scale.  Lane 2 is not held to JAX: with gain_mu * mm in the
+    hundreds a 1-ulp difference of the interpolator's sum order (JAX's dot,
+    the port's tap order) flips rint(mu * 128) or floor(mu) within a few
+    hundred symbols, and the two trajectories part (ROADMAP §C); the port's
+    plain and scan backends, which share the arithmetic, agree on it bit
+    for bit (the test above)."""
+    monkeypatch.setenv("SDRM_CLOCK_CHUNK", "256")
+    y3 = _scaled_lane_y3()
+    (jouts, jcounts, jstate), (outs, counts, state) = next(_run_both(LUCKY7, [y3]))
+    lanes = [0, 1, 3, 4]
+    jcounts = np.asarray(jcounts)[lanes]
+    assert np.array_equal(counts.numpy()[lanes], jcounts)
+    jsym = np.asarray(jax_to_int8(jouts)).astype(np.int32)[lanes]
+    sym = float_to_int8(outs).numpy().astype(np.int32)[lanes]
+    for lane in range(len(lanes)):
+        for k, n in enumerate(jcounts[lane]):
+            assert np.abs(sym[lane, k, :n] - jsym[lane, k, :n]).max(initial=0) <= 1
+    assert np.array_equal(state.resid.numpy()[lanes], np.asarray(jstate.resid)[lanes])
+    for port, jax_v in ((state.omega, jstate.omega), (state.mu, jstate.mu)):
+        np.testing.assert_allclose(port.numpy()[lanes], np.asarray(jax_v)[lanes], rtol=0, atol=1e-5)
+    assert np.array_equal(state.suffix.numpy(), np.asarray(jstate.suffix))
+    assert jcounts.sum() > 4 * 700

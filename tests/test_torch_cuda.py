@@ -12,7 +12,8 @@ and sin come from two libraries (the kernel's cosf/sinf, torch's on the
 plain side), an ulp apart: the mixed tail within 2e-6 and quad_prev within
 1e-6.  The FIR kernel alone (B3, B8) within 1e-5 of its plain version.
 The clock, fed the same y3, is exact: both sum the interpolator in tap
-order and neither contracts a multiply and an add.  The fused and banded
+order and neither contracts a multiply and an add, and both walk each chunk
+in its own work buffer, at any number of B2's staged chunks a slot.  The fused and banded
 fronts run the same kernels in the same order: bit for bit.  The TX
 kernels (B5, B6) within 1e-4 of their plain versions on I/Q and the phase
 (both carry the phase prefix in float64, summed in another order, and
@@ -29,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from sdrmodem_tpu_torch.dsp.clock_recovery import chunk_plan, clock_mm_batched_full, mm_params
+from sdrmodem_tpu_torch.dsp.clock_recovery import chunk_plan, clock_mm_batched_full, initial_full_state, mm_params
 from sdrmodem_tpu_torch.dsp.doppler import Doppler
 from sdrmodem_tpu_torch.dsp.gfsk_mod import GfskModConfig, GfskModulator
 from sdrmodem_tpu_torch.dsp.streaming import StreamingGfskMod
@@ -366,14 +367,17 @@ def test_b4_small_slots_match_plain(cuda, monkeypatch, case, time_major):
 
 @pytest.mark.cuda
 def test_full_scan_backend_on_card_equals_b2(cuda):
-    """clock_mm_batched_full through B4 chunk by chunk equals B2."""
+    """clock_mm_batched_full through B4 chunk by chunk equals B2, a lane
+    scaled by 1e4 among them."""
     c, block = 5, 8192
     pipe = DemodPipeline(FskDemodConfig(*CONFIGS["lucky7"]), block, device=cuda)
     p = pipe.config.clock_params()
     rng = np.random.default_rng(4)
     st = {b: pipe.init_full_state(c).clock for b in ("pallas", "scan")}
     for _ in range(2):
-        y3 = torch.from_numpy(np.sign(rng.standard_normal((block // 2, c))).astype(np.float32)).to(cuda)
+        y3 = np.sign(rng.standard_normal((block // 2, c))).astype(np.float32)
+        y3[:, 2] *= 1e4  # strides run back past a chunk's first row
+        y3 = torch.from_numpy(y3).to(cuda)
         n0 = (clock_ops.launches, clock_ops.ragged_launches)
         res = {}
         for b in st:
@@ -384,6 +388,80 @@ def test_full_scan_backend_on_card_equals_b2(cuda):
         assert torch.equal(res["pallas"][1], res["scan"][1])
         for a, b in zip(st["pallas"], st["scan"]):
             assert torch.equal(a, b)
+
+
+B2_SLOT_CASES = ["scaled", "jump", "ragged_block", "short_block", "inf_nan_edge", "few_symbols",
+                 "lanes300"]
+
+
+def _b2_slot_case(case, device, monkeypatch):
+    """A noisy two-level signal at sps 4.8 (time-major y3, a carried suffix,
+    mu and resid), changed so that B2's walk meets each edge of its chunks
+    and slots: a lane scaled by 1e4 (strides run back past a chunk's first
+    row), lanes whose read position jumps past several chunks (a lane
+    scaled by 1e5, a negative resid), a block that is not a multiple of
+    the chunk and one shorter than a chunk, NaN and inf across chunk and
+    slot edges, K small enough that the slots fill (the resid clip to
+    sfx - 1), and 300 lanes (more than the SMs; the chunk halves to 680).
+    Chunks of 256 rows but at 300 lanes.  Returns (y3, suffix, omega, mu,
+    last, resid, bank) on ``device`` and the plan."""
+    c, n = (300, 4096) if case == "lanes300" else (5, 4096)
+    if case != "lanes300":
+        monkeypatch.setenv("SDRM_CLOCK_CHUNK", "256")
+    n = {"ragged_block": 5 * 256 + 100, "short_block": 100}.get(case, n)
+    rng = np.random.default_rng(9)
+    bits = np.repeat(rng.choice([-1.0, 1.0], (n // 5 + 8, c)), 5, axis=0)[:n]
+    y3 = (bits + 0.2 * rng.standard_normal((n, c))).astype(np.float32)
+    p = mm_params(4.8)
+    sfx = initial_full_state(p["omega"], 1, device="cpu").suffix.shape[0]
+    suffix = rng.standard_normal((sfx, c)).astype(np.float32)
+    resid = rng.integers(0, sfx - 1, c).astype(np.int32)
+    if case in ("scaled", "ragged_block", "short_block"):
+        y3[:, 2] *= 1e4
+    elif case == "jump":
+        y3[:, 1] *= 1e5
+        resid[3] = -1500  # starts 1500 rows past its first window
+    elif case == "inf_nan_edge":  # chunk edges at 256 and 512 rows of y3, slots at 768 too
+        y3[250:262, 1] = np.nan
+        y3[511, 2] = np.inf
+        y3[760:775, 3] = -np.inf
+        y3[1020:1030, 4] = np.nan
+    plan = chunk_plan(n, c, sfx, **{k: p[k] for k in ("omega", "gain_omega", "gain_mu",
+                                                          "omega_relative_limit")},
+                      num_symbols=20 if case == "few_symbols" else None)
+    mu = rng.random(c).astype(np.float32)
+    state = [suffix, np.full(c, p["omega"], np.float32), mu, y3[0].copy(), resid]
+    args = [torch.from_numpy(a).to(device) for a in (y3, *state)]
+    return [*args, clock_ops.default_bank(device)], plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slot", ["default", "one_chunk"])
+@pytest.mark.parametrize("case", B2_SLOT_CASES)
+def test_b2_slots_match_plain(cuda, monkeypatch, case, slot):
+    """B2 against its plain version bit for bit, outs, counts and final
+    state, at its own slot size and at one chunk a slot (a barrier every
+    chunk).  A window with a single inf sample sends a lane's state to NaN
+    (the algorithm's own rule, the same on both sides), so NaN equals NaN."""
+    args, plan = _b2_slot_case(case, cuda, monkeypatch)
+    if slot == "one_chunk":
+        monkeypatch.setattr(clock_ops, "CLOCK_SLOT_ROWS", plan["chunk"])
+    n0 = clock_ops.launches
+    outs, counts, fin = clock_ops.clock_mm_chunked(*args, **plan)
+    assert clock_ops.launches == n0 + 1
+    p_outs, p_counts, p_fin = clock_ops.clock_mm_chunked_plain(*args, **plan)
+    torch.cuda.synchronize()
+    for got, want in [(outs, p_outs), (counts, p_counts), *zip(fin, p_fin)]:
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    n_chunks = -(-args[0].shape[0] // plan["chunk"])
+    assert counts.shape == (n_chunks, args[0].shape[1]) and counts.sum() > 0
+    if case == "few_symbols":
+        assert (counts == plan["num_symbols"]).float().mean() > 0.5
+    elif case == "jump":
+        assert fin[3][1] < 0 or (counts[:, 1] == 0).any()
+        assert (counts[:5, 3] == 0).all() and counts[5, 3] > 0
+    elif case == "lanes300":
+        assert plan["chunk"] == 680
 
 
 @pytest.mark.cuda
@@ -497,3 +575,54 @@ def test_step_kernel_equals_front_and_clock(cuda, name, with_dop):
         assert all(torch.equal(a, b) for a, b in zip(_step_flat(sym_s, cnt_s), _step_flat(sym_p, cnt_p)))
         for a, b in zip((*st_s[:4], *st_s.clock), (*st_p[:4], *st_p.clock)):
             assert (a is None and b is None) or torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# quad gain 3820 (deviation 2 Hz): y3 runs in the thousands, so the clock's
+# strides run back past a chunk's first row
+STEEP = (48000, 4800, 2, 2, 2000, True)
+
+
+@pytest.mark.cuda
+def test_step_kernel_backward_strides(cuda):
+    """B7 where strides run back past a chunk's first row and chunks fill
+    their K slots: against its plain version, and against B1 followed by
+    B2 at B7's chunk and K, every side walking each chunk in its own work
+    buffer, bit for bit, two blocks with the state carried."""
+    c, block, chunk = 6, 8192, 256
+    pipe = DemodPipeline(FskDemodConfig(*STEEP), block, device=cuda)
+    p = pipe.config.clock_params()
+    consts = dict(omega_mid=p["omega"], omega_relative_limit=p["omega_relative_limit"],
+                  gain_omega=p["gain_omega"], gain_mu=p["gain_mu"])
+    clock_kw = dict(chunk=chunk, num_symbols=120, omega_mid=p["omega"],
+                    omega_lim=clock_ops.omega_limit(p["omega"], p["omega_relative_limit"]),
+                    gain_omega=p["gain_omega"], gain_mu=p["gain_mu"])
+    st = pipe.init_full_state(c)
+    ck = st.clock
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        x = torch.from_numpy(rng.standard_normal((block, 2 * c)).astype(np.float32)).to(cuda)
+        clock_in = (ck.suffix, ck.omega, ck.mu, ck.last_sample, ck.resid)
+        args = (x, *st[:4], *clock_in, pipe.front_taps, pipe.bank)
+        n0 = step_ops.launches
+        outs, counts, _, front, fin = step_ops.fused_step(*args, chunk=chunk, num_symbols=120, **consts)
+        assert step_ops.launches == n0 + 1
+        p_outs, p_counts, _, p_front, p_fin = step_ops.fused_step_plain(
+            *args, chunk=chunk, num_symbols=120, **consts)
+        y3, f_pair = front_ops.fused_front(x, *st[:4], pipe.front_taps)
+        n0 = clock_ops.launches
+        o2, c2, fin2 = clock_ops.clock_mm_chunked(y3, *clock_in, pipe.bank, **clock_kw)
+        assert clock_ops.launches == n0 + 1
+        torch.cuda.synchronize()
+        for o, cnt in ((p_outs, p_counts), (o2, c2)):
+            assert torch.equal(outs, o) and torch.equal(counts, cnt)
+        for key, b in zip(("omega", "mu", "last", "resid"), fin2):
+            assert torch.equal(fin[key], p_fin[key]) and torch.equal(fin[key], b)
+        assert torch.equal(fin["suffix"], p_fin["suffix"])
+        assert torch.equal(fin["suffix"], y3[y3.shape[0] - ck.suffix.shape[0]:])
+        for a, b, b2 in zip(front, p_front, f_pair):
+            assert (a is None and b is None) or (torch.equal(a, b) and torch.equal(a, b2))
+        assert (counts == 120).any() and y3.abs().max() > 1000
+        st = DemodStateFull(*front, ck._replace(
+            omega=fin["omega"], mu=fin["mu"], last_sample=fin["last"], resid=fin["resid"],
+            suffix=fin["suffix"]))
+        ck = st.clock
