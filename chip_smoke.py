@@ -21,7 +21,12 @@ Phases (any failure exits non-zero, and no result line is printed):
              offset, and B8; the front with Doppler tables from the raw
              lucky7 pass on 64 lanes (the other 64 without rows, which must
              equal a run without Doppler bit for bit); the fused and banded
-             fronts bit for bit, with and without Doppler; the TX kernels,
+             fronts bit for bit (y3 and the four tails), with and without
+             Doppler, in the four configurations at 128 x 65536, lucky7 at
+             300 lanes x 65536 and x 64 rows and nan at 130 lanes x 1000
+             rows (blocks shorter than the DC history), with Doppler rows
+             on the fused kernel's tile and segment edges and a NaN stretch
+             across a segment edge; the TX kernels,
              B5 at 2048 B and 32 KiB at I = 2 and 60 and B6 at 5 and 128
              streams x 2048 B, with a carried phase and history and a
              ragged n_valid; B4 at 128 lanes x 65536 in both layouts (a NaN
@@ -52,7 +57,8 @@ Phases (any failure exits non-zero, and no result line is printed):
              128 lanes x 2^20 with the LPF2 taps, decimation 2.  One warm-up
              and 5 timed steps each (3 for fir_tpu), by CUDA events.  On
              each path's own inputs, outside the counted runs, the fronts
-             and B3 are held against their plain versions.  (d) the
+             and B3 are held against their plain versions, and the fused
+             front against the banded front bit for bit.  (d) the
              server's TX chain (server/session.py:707-726): 100 TxData of
              2048 B through one StreamingGfskMod, then 8 of 32 KiB at I = 2
              and 2 at I = 60, each followed by Doppler.process_tx; wall
@@ -69,7 +75,11 @@ Phases (any failure exits non-zero, and no result line is printed):
              streamer's one-lane buffer must equal its plain version;
 5. kernels — each kernel alone at its path's shape: time, its plain
              version's time and error, its bound, and a PyTorch library
-             call's time where one computes the same function.  B2 must
+             call's time where one computes the same function.  B1 with
+             Doppler, without, its first launch alone (lucky7_nodc) and its
+             DC launch alone, which must give the front's y3 bit for bit;
+             its row carries a second bound, the work of this design with
+             the DC blocker as a FIR.  B2 must
              equal its plain version bit for bit at 128 x 2^20; then B2
              alone at 128, 512, 1024 and 4096 lanes x 2^19 rows, each
              tiled lane equal to the 128-lane run, and path (b)'s step at
@@ -85,6 +95,7 @@ without a CUDA device, or where the port is not beside this script.
 import functools
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -105,6 +116,7 @@ CHECK_CONFIGS = {
     "lucky7_nodc": (48000, 4800, 5000, 2, 2000, False),
     "nusat": (192000, 40000, 5000, 1, 2000, True),
 }
+FRONT_CONFIGS = {**CHECK_CONFIGS, "nan": (240000, 9600, 5000, 1, 2000, True)}  # inputnan.cf32's
 LANES = 128
 CHECK_BLOCK = 65536
 TX_RADIO = (9600, 5000)  # baud, deviation
@@ -257,6 +269,18 @@ def counted(torch, path, want, fn, never=()):
     return out, counts
 
 
+def kernel_name(mangled):
+    """A kernel's name and template arguments from its mangled name
+    (``...12front_kernelILi2EE...`` -> ``front_kernel<ILi2E>``)."""
+    for m in re.finditer(r"\d+", mangled):
+        n, at = int(m.group()), m.end()
+        name = mangled[at : at + n]
+        if name.endswith("kernel") and len(name) == n:
+            args = re.match(r"I\w*?E(?=E)", mangled[at + n :])
+            return name + (f"<{args.group()}>" if args else "")
+    return mangled
+
+
 def phase_build():
     from sdrmodem_tpu_torch.ops import _build
 
@@ -264,9 +288,14 @@ def phase_build():
     logs = _build.build()
     log(f"[build] {sorted(logs)} built in {time.perf_counter() - t0:.3f} s")
     for name, text in logs.items():
+        kernel, spills = "?", ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = kernel_name(line.split("'")[1])
+            elif "spill" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                log(f"[build] {name}: {kernel}: {line.strip().removeprefix('ptxas info    : ')}; {spills}")
 
 
 def check_front_and_clock(torch, dev):
@@ -411,6 +440,79 @@ def check_doppler_front(torch, dev):
     need(err["mixed_tail"] <= MIXED_ATOL, f"doppler front: mixed tail error {err['mixed_tail']}")
     need(err["quad_prev"] <= 1e-6 and max(err["lpf2"], err["dc"]) <= FRONT_ATOL,
          "doppler front: tail error")
+
+
+def edge_tables(torch, block, c, plan, rng, dev):
+    """(S, C) Doppler tables whose rows start and end on the fused front's
+    tile and segment edges and one row off them, on the even lanes; lane 3
+    has S rows of one sample each from row 0 (more rows meet its first
+    tile than the kernel keeps); the other lanes have no rows."""
+    edges = {e + k for step in (plan.tile, plan.seg_rows) for e in range(step, block, step)
+             for k in (-1, 0, 1)}
+    cuts = sorted({0, *(e for e in edges if 0 < e < block), block})
+    s_rows = min(len(cuts) - 1, 24)
+    tables = [np.zeros((s_rows, c), np.float32) for _ in range(4)]
+    for lane in range(0, c, 2):
+        picks = np.sort(rng.choice(len(cuts) - 1, s_rows, replace=False))
+        for s, k in enumerate(picks):
+            tables[0][s, lane] = cuts[k]
+            tables[1][s, lane] = cuts[k + 1]
+            tables[2][s, lane] = rng.uniform(-0.3, 0.3)
+            tables[3][s, lane] = rng.uniform(-np.pi, np.pi)
+    tables[0][:, 3] = np.arange(s_rows)
+    tables[1][:, 3] = np.arange(1, s_rows + 1)
+    tables[2][:, 3] = 0.1
+    tables[3][:, 3] = 1.0
+    return tuple(torch.from_numpy(t).to(dev) for t in tables)
+
+
+def same_front(torch, got, want):
+    """Whether two fronts' (y3, tails) are equal bit for bit, NaN equal to NaN."""
+    return same_bits(torch, got[0], want[0]) and all(
+        (a is None and b is None) or same_bits(torch, a, b) for a, b in zip(got[1], want[1]))
+
+
+def check_front_banded(torch, dev):
+    """The fused front (B1) against the banded front bit for bit, y3 and
+    the four tails, three blocks with the state carried, without and with
+    Doppler rows on the fused kernel's tile and segment edges, a NaN
+    stretch across a segment edge in the second block: the four
+    configurations at 128 lanes x 65536, lucky7 at 300 lanes x 65536 and x
+    64 rows, and nan at 130 lanes x 1000 rows (blocks shorter than the DC
+    history)."""
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.ops import front as front_ops
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [(name, LANES, CHECK_BLOCK) for name in FRONT_CONFIGS]
+    cases += [("lucky7", 300, CHECK_BLOCK), ("lucky7", 300, 64), ("nan", 130, 1000)]
+    res = {}
+    for name, c, block in cases:
+        pipe = DemodPipeline(FskDemodConfig(*FRONT_CONFIGS[name]), block, device=dev)
+        taps = pipe.front_taps
+        plan = front_ops.front_plan(block, c, taps.rev1.numel(), taps.rev2.numel(), taps.d, sms)
+        rng = np.random.default_rng(block + c)
+        x_all = capture_lanes(torch, dev, 3 * block, c)
+        edge = plan.seg_rows if plan.segments > 1 else block // 2
+        x_all[block + max(0, edge - 5) : block + edge + 5, [1, c + 1]] = float("nan")
+        for with_dop in (False, True):
+            st_f = st_b = pipe.init_full_state(c)
+            for blk in range(3):
+                x = x_all[blk * block : (blk + 1) * block]
+                dop = edge_tables(torch, block, c, plan, rng, dev) if with_dop else None
+                fused = front_ops.fused_front(x, *st_f[:4], taps, dop)
+                banded = front_ops.banded_front(x, *st_b[:4], taps, dop)
+                torch.cuda.synchronize()
+                need(same_front(torch, fused, banded),
+                     f"{name} {c} x {block} block {blk} (Doppler {with_dop}): fused front differs from banded")
+                st_f = st_f._replace(lpf1_hist=fused[1][0], quad_prev=fused[1][1], lpf2_hist=fused[1][2],
+                                     dc_hist=fused[1][3])
+                st_b = st_b._replace(lpf1_hist=banded[1][0], quad_prev=banded[1][1],
+                                     lpf2_hist=banded[1][2], dc_hist=banded[1][3])
+        res[f"{name} {c} x {block}"] = dict(tile=plan.tile, segments=plan.segments, seg_rows=plan.seg_rows)
+    log(f"[check] fused front == banded front bit for bit (y3 and the four tails, with and without "
+        f"Doppler rows on the tile and segment edges, NaN across a segment edge): {json.dumps(res)}")
 
 
 def tx_mod(fs, dev):
@@ -684,6 +786,7 @@ def phase_check(torch, dev):
     check_b2_slots(torch, dev)
     check_fir(torch, dev)
     check_doppler_front(torch, dev)
+    check_front_banded(torch, dev)
     err = check_tx(torch, dev)
     err["ragged"], err["b4_lanes"] = check_ragged(torch, dev)
     return err
@@ -873,6 +976,17 @@ def front_cost(c, b, taps, d, dop=None):
         words += 4 * dop[0].numel()
         flops += nco_cost(b, c, dop)[1]
     return 4 * words, flops
+
+
+def front_fir_cost(c, b, taps, d, dop=None):
+    """(bytes, flops) of the work this design does: ``front_cost`` with
+    the DC blocker taken as its (4L-3)-tap FIR (two flops a tap, not 13 an
+    output) and y2 written and read once between the two launches."""
+    nbytes, flops = front_cost(c, b, taps, d, dop)
+    if taps.rev_dc is None:
+        return nbytes, flops
+    n2 = b // d
+    return nbytes + 2 * 4 * n2 * c, flops - 13 * n2 * c + 2 * n2 * c * taps.rev_dc.numel()
 
 
 def nco_cost(rows, c, dop):
@@ -1223,11 +1337,13 @@ def phase_main(torch, dev):
     log("[main] lane 0 of tm and every fanout lane equal a one-lane run, bit for bit")
     # the front on path (a)'s own input and configuration (no Doppler) against plain
     st = pipe.init_full_state(c)
-    front_errs = [hold_front(
-        "(a) front 128 x 2^20, no Doppler",
-        front_ops.fused_front(x_tm, *st[:4], pipe.front_taps),
-        front_ops.fused_front_plain(x_tm, *st[:4], pipe.front_taps), doppler=False,
-    )]
+    fused = front_ops.fused_front(x_tm, *st[:4], pipe.front_taps)
+    front_errs = [hold_front("(a) front 128 x 2^20, no Doppler", fused,
+                             front_ops.fused_front_plain(x_tm, *st[:4], pipe.front_taps), doppler=False)]
+    need(same_front(torch, fused, front_ops.banded_front(x_tm, *st[:4], pipe.front_taps)),
+         "(a): the fused front differs from the banded front")
+    log("[main] (a) front 128 x 2^20: fused == banded bit for bit (y3 and the four tails)")
+    del fused
     b4_b2 = b4_against_b2(torch, pipe, x_tm)
     del x_tm, x_fan, one, st
 
@@ -1273,10 +1389,14 @@ def phase_main(torch, dev):
     xs_tm = spipe.to_time_major(x_srv, c, "fanout")
     front_args = (xs_tm, *st[:4], spipe.front_taps, tables[0])
     plain = front_ops.fused_front_plain(*front_args)
+    fronts = {}
     for name, fn in (("fused", front_ops.fused_front), ("banded", front_ops.banded_front)):
-        front_errs.append(hold_front(f"(b) {name} front 128 x 262144, Doppler", fn(*front_args),
+        fronts[name] = fn(*front_args)
+        front_errs.append(hold_front(f"(b) {name} front 128 x 262144, Doppler", fronts[name],
                                      plain, doppler=True))
-    del plain
+    need(same_front(torch, fronts["fused"], fronts["banded"]), "(b): the fused front differs from the banded front")
+    log("[main] (b) front 128 x 262144 with Doppler: fused == banded bit for bit (y3 and the four tails)")
+    del plain, fronts
     fir_errs = {}
 
     def fir_both(xw, rev, stride, n_out):
@@ -1787,9 +1907,19 @@ def phase_kernels(torch, dev, main):
         nco[rows], _ = cuda_ms(torch, lambda: front_ops.nco_mix(xs, dop_s), 5)
         nco[f"{rows}_rows"] = dop_s[0].shape[0]
         nco[f"{rows}_bound"] = bound(*nco_cost(rows, c, dop_s))
-    log(f"[kernels] front with Doppler ({s_rows} rows) {front_ms:.4f} ms, without {nodop_ms:.4f} ms; "
-        f"NCO stage alone {json.dumps(nco)} (ms, table rows and bound, at 128 lanes x rows)")
-    del y3_p, f_p, y3_0
+    # its first launch alone (lucky7_nodc: NCO to LPF2, y2 out) and the DC launch alone on that y2
+    nodc = DemodPipeline(FskDemodConfig(*CHECK_CONFIGS["lucky7_nodc"]), b, device=dev)
+    nodc_args = (x_tm, *nodc.init_full_state(c)[:4], nodc.front_taps, dop)
+    front_ops.fused_front(*nodc_args)
+    nodc_ms, (y2, _) = cuda_ms(torch, lambda: front_ops.fused_front(*nodc_args), 3)
+    front_ops.dc_fir(y2, state.dc_hist, taps)
+    dc_ms, y3_dc = cuda_ms(torch, lambda: front_ops.dc_fir(y2, state.dc_hist, taps), 3)
+    need(torch.equal(y3_dc, y3), "the DC launch on lucky7_nodc's output differs from lucky7's y3")
+    log(f"[kernels] front (B1) at {c} x {b}: with Doppler ({s_rows} rows) {front_ms:.4f} ms, without "
+        f"{nodop_ms:.4f} ms; lucky7_nodc with Doppler (launch 1 alone) {nodc_ms:.4f} ms; the DC launch "
+        f"alone {dc_ms:.4f} ms, equal to the front's y3 bit for bit [{card()}]; the banded route's NCO "
+        f"stage alone {json.dumps(nco)} (ms, table rows and bound, at 128 lanes x rows)")
+    del y3_p, f_p, y3_0, y2, y3_dc, nodc_args
 
     # ---- fir (B3) at the LPF1 shape: [lpf1_hist | block], 2^20 x 256 x 157 taps
     work = torch.cat([state.lpf1_hist, x_tm])
@@ -1867,13 +1997,14 @@ def phase_kernels(torch, dev, main):
     del s_outs, s_counts, s_front, s_clock, step_state, pair_state
 
     f_bound, f_by = bound(*front_cost(c, b, taps, pipe.config.decimation, dop))
+    fd_bound, fd_by = bound(*front_fir_cost(c, b, taps, pipe.config.decimation, dop))
     c_bound, c_by = bound(*clock_cost(y3.shape[0], c, ck.suffix.shape[0], counts.shape[1],
                                       plan["num_symbols"], symbols))
     r_bound, r_by = bound(*fir_cost(work.shape[0], 2 * c, b, t1))
     n_fir = main["y_fir"].shape[0]
     t_bound, t_by = bound(*fir_cost(x_fir.shape[0], c, n_fir, t2))
     log(f"[kernels] front {front_ms:.4f} ms (plain {front_plain_ms:.4f}, conv1d LPF1 {lib_ms:.4f}, "
-        f"bound {f_bound:.4f} by {f_by}); clock {clock_ms:.4f} ms (plain {clock_plain_ms:.4f}, "
+        f"bound {f_bound:.4f} by {f_by}, {fd_bound:.4f} by {fd_by} with the DC as a FIR); clock {clock_ms:.4f} ms (plain {clock_plain_ms:.4f}, "
         f"bound {c_bound:.4f} by {c_by}); fir {fir_ms:.4f} ms (plain {fir_plain_ms:.4f}, conv1d "
         f"{lib_ms:.4f}, bound {r_bound:.4f} by {r_by}); fir_tpu {main['fir_tpu_ms']:.4f} ms (plain "
         f"{fir_tpu_plain_ms:.4f}, conv1d {fir_tpu_lib_ms:.4f}, bound {t_bound:.4f} by {t_by}); "
@@ -1886,7 +2017,8 @@ def phase_kernels(torch, dev, main):
         dict(name="front", route="cuda", source="sdrmodem_tpu_torch/csrc/front.cu",
              replaces="sdrmodem_tpu/ops/pallas_front.py:118", launches=launches["front"],
              max_abs_err=front_err, ms=front_ms, plain_ms=front_plain_ms, bound_ms=f_bound,
-             bound_by=f_by, library_ms=lib_ms),
+             bound_by=f_by, library_ms=lib_ms, bound_dc_fir_ms=fd_bound, bound_dc_fir_by=fd_by,
+             nodop_ms=nodop_ms, nodc_ms=nodc_ms, dc_ms=dc_ms),
         dict(name="clock", route="cuda", source="sdrmodem_tpu_torch/csrc/clock.cu",
              replaces="sdrmodem_tpu/ops/pallas_clock.py:326", launches=launches["clock"],
              max_abs_err=clock_err, ms=clock_ms, plain_ms=clock_plain_ms, bound_ms=c_bound,

@@ -24,8 +24,10 @@
 // ramp would move the phase by an ulp of ~6000 rad (~5e-4).  cos and sin
 // are the accurate library functions (no fast math).  A lane with no
 // active row gets phase 0 exactly, cos 1 and sin 0, and passes through
-// bit for bit.  It runs as its own launch ahead of LPF1; the fused step
-// (step.cu, B7) calls the same per-sample function on its input tile.
+// bit for bit.  The banded front runs it as its own launch ahead of LPF1;
+// the fused step (step.cu, B7) calls the same per-sample function on its
+// input tile, and the front (front.cu, B1) the same row phase and rotation
+// over only the rows that meet its tile.
 
 #pragma once
 
@@ -34,10 +36,33 @@
 
 namespace {
 
+// One table row's phase at block row nrow, or +0 where the row is not
+// active there: ph0 + m * adj + k * stp with nrow - st = k * 4096 + m, every
+// product and sum rounded to nearest on its own.
+__device__ __forceinline__ float nco_row_phase(float st, float en, float adj, float ph0, float stp,
+                                               float nrow) {
+  const bool active = nrow >= st && nrow < en;
+  const float dd = __fsub_rn(nrow, st);
+  const float kq = floorf(__fmul_rn(dd, 1.f / 4096.f));
+  const float mq = __fsub_rn(dd, __fmul_rn(kq, 4096.f));
+  const float ramp = __fadd_rn(__fadd_rn(ph0, __fmul_rn(mq, adj)), __fmul_rn(kq, stp));
+  return active ? ramp : 0.f;
+}
+
+// (i, q) rotated by the phase ph.
+__device__ __forceinline__ float2 nco_rotate(float ph, float i, float q) {
+  const float cs = cosf(ph), sn = sinf(ph);
+  return make_float2(__fsub_rn(__fmul_rn(i, cs), __fmul_rn(q, sn)),
+                     __fadd_rn(__fmul_rn(i, sn), __fmul_rn(q, cs)));
+}
+
 // Lane c's sample (i, q) at block row nrow mixed by the table.  tab is
 // (5, S, C): starts, ends, adjs, ph0s and the per-4096 coarse steps
 // (float32 of mod(float64(adj) * 4096, 2 pi), computed by the wrapper);
-// nrow is exact in float32 (the wrappers keep rows < 2^24).
+// nrow is exact in float32 (the wrappers keep rows < 2^24).  The phase is
+// +0 plus each row's term in row order; a row that is not active adds +0,
+// which leaves the sum as it is (it is never -0), so a caller may skip the
+// rows that are active nowhere in its range and get the same bits.
 __device__ __forceinline__ float2 nco_mix_sample(const float* __restrict__ tab, int s_rows,
                                                  int lanes, int c, float nrow, float i,
                                                  float q) {
@@ -45,18 +70,9 @@ __device__ __forceinline__ float2 nco_mix_sample(const float* __restrict__ tab, 
   float ph = 0.f;
   for (int s = 0; s < s_rows; ++s) {
     const float* t = tab + (long long)s * lanes + c;
-    const float st = t[0], en = t[plane], adj = t[2 * plane];
-    const float ph0 = t[3 * plane], stp = t[4 * plane];
-    const bool active = nrow >= st && nrow < en;
-    const float dd = __fsub_rn(nrow, st);
-    const float kq = floorf(__fmul_rn(dd, 1.f / 4096.f));
-    const float mq = __fsub_rn(dd, __fmul_rn(kq, 4096.f));
-    const float ramp = __fadd_rn(__fadd_rn(ph0, __fmul_rn(mq, adj)), __fmul_rn(kq, stp));
-    ph = __fadd_rn(ph, active ? ramp : 0.f);
+    ph = __fadd_rn(ph, nco_row_phase(t[0], t[plane], t[2 * plane], t[3 * plane], t[4 * plane], nrow));
   }
-  const float cs = cosf(ph), sn = sinf(ph);
-  return make_float2(__fsub_rn(__fmul_rn(i, cs), __fmul_rn(q, sn)),
-                     __fadd_rn(__fmul_rn(i, sn), __fmul_rn(q, cs)));
+  return nco_rotate(ph, i, q);
 }
 
 // y (rows, 2C) = x mixed by the (5, S, C) table, one thread an element.

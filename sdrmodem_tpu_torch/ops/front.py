@@ -12,12 +12,17 @@ Time-major throughout: x is (B, 2C) with I in lanes [0, C) and Q in
 tuple of (S, C) float32 tables from ``Doppler.device_segments``; with it
 LPF1 reads the mixed block, and lpf1_hist' is the mixed block's tail.
 
-- ``fused_front`` launches ``csrc/front.cu``'s stages from one C call;
-- ``banded_front`` launches the same NCO and quad-demod kernels one at a
-  time (``nco_mix``, ``quad_demod``) and its FIRs through B3
+- ``fused_front`` launches ``csrc/front.cu``: one kernel runs the NCO,
+  LPF1, the quad demod and LPF2 over tiles in shared memory, lane groups
+  x time segments of the block (``front_plan``), and writes y2 and the
+  tails; a second (``dc_fir``) runs the DC blocker's FIR over [dc_hist |
+  y2];
+- ``banded_front`` launches the NCO and quad-demod kernels one at a time
+  (``nco_mix``, ``quad_demod``) and its FIRs through B3
   (``ops/fir.py:conv1d_banded_tm``) over [history | block].
 
-The two run the same device code in the same order, so on the card they
+Both sum every FIR output in tap order with one rounding a tap and take
+the NCO and the quad demod with the same device code, so on the card they
 give the same bits, as the JAX package's fused and banded fronts do.  For
 a CPU tensor each wrapper runs its plain version.
 
@@ -31,6 +36,8 @@ on the kernel's sums the port holds the reference's ±2 LSB there.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -50,15 +57,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "front_forward": [
-        _P, _I, _I,  # x, block, lanes
-        _P, _I, _P,  # doppler table (5, S, C) or null, S, mixed-block scratch
+        _P, _I, _I, _P, _I,  # x, block, lanes, doppler table (5, S, C) or null, S
         _P, _P, _I,  # lpf1 hist, taps, t1
         _P, _F, _P,  # quad_prev, quad_gain, atan_table
         _P, _P, _I, _I,  # lpf2 hist, taps, t2, decim
-        _P, _P, _I,  # dc hist, taps, t3 (0 = no DC stage)
-        _P, _P, _P, _P,  # y1, yq, y2, y3
-        _P, _P,  # stream, kernels launched (int out)
+        _I, _I, _I, _I,  # the plan: tile, warps, seg_rows, lead
+        _P, _P, _P, _P, _P,  # y2 (y3 without DC), lpf1', quad', lpf2', stream
     ],
+    "dc_fir_forward": [
+        _P, _P, _I, _I,  # dc hist, y2, n2, lanes
+        _P, _I, _I, _P, _P,  # taps, t3, seg_rows, y3, stream
+    ],
+    "front_shared_bytes": [_I, _I, _I],
     "quad_demod_forward": [
         _P, _P, _I, _I,  # y1, prev, rows, lanes
         _P, _F, _P, _P,  # atan_table, quad_gain, yq, stream
@@ -79,6 +89,85 @@ class FrontTaps(NamedTuple):
     d: int  # LPF2 decimation
     quad_gain: float  # float32-exact
     atan_table: torch.Tensor  # (257,) reference arctangent table
+
+
+# front.cu's launch geometry (csrc/front.cu: kGroupLanes, kRows1, kMaxWarps)
+MAX_SHARED_BYTES = 232448  # shared memory one block may have on an H100 (227 KB)
+H100_SMS = 132
+GROUP_LANES = 32  # lanes a thread block
+ROWS1 = 16  # LPF1 rows a thread
+MAX_WARPS = 8
+MAX_TILE = 128  # rows a tile, at most
+SEG_DOPPLER_ROWS = 8  # Doppler rows a lane keeps for its segment (kSegRows)
+DC_ROWS = 24  # DC FIR outputs a thread (fir.cuh: kBlockedRows)
+DC_BLOCKS_PER_SM = 4
+
+
+class FrontPlan(NamedTuple):
+    """How ``front_forward`` cuts one block: segments of ``seg_rows`` input
+    rows for every group of 32 lanes, each walked in tiles of ``tile`` rows
+    by ``warps`` warps, a later segment starting ``lead`` rows early."""
+
+    tile: int
+    warps: int
+    seg_rows: int
+    lead: int
+    segments: int
+    shared_bytes: int
+
+    def segment_rows(self, block: int):
+        """(first row, end row, first row walked) of each segment."""
+        out = []
+        for k in range(self.segments):
+            a = k * self.seg_rows
+            out.append((a, min(block, a + self.seg_rows), max(0, a - self.lead)))
+        return out
+
+
+def lpf2_rows(d: int) -> int:
+    """LPF2 outputs a thread: the register window slides at strides 1 and
+    2; another stride takes one output a thread."""
+    return {1: 16, 2: 8}.get(d, 1)
+
+
+def front_shared_bytes(t1: int, t2: int, tile: int) -> int:
+    """Bytes of shared memory of one block (``csrc/front.cu:Layout``)."""
+    g, groups = GROUP_LANES, tile // ROWS1
+    floats = (-(-257 // 4) + -(-t1 // 4) + -(-t2 // 4)) * 4
+    floats += 2 * (t1 - 1 + tile) * g + (t2 - 1 + tile) * g + 4 * groups * g + 2 * g
+    floats += 3 * SEG_DOPPLER_ROWS * g + g  # each lane's Doppler rows for its segment
+    return 4 * floats
+
+
+@functools.lru_cache(maxsize=64)
+def front_plan(block: int, lanes: int, t1: int, t2: int, d: int, sms: int = H100_SMS) -> FrontPlan:
+    """The largest tile (at most MAX_TILE rows, a multiple of 16 and of
+    LPF2's d * rows a thread) whose layout lets two blocks share an SM, else
+    the largest that fits one; then enough segments that the lane groups
+    fill ``sms`` SMs once.  A later segment recomputes t2 rows rounded up to
+    d before its first (the mixed input's t1 - 1 rows of history before
+    those are loaded, not computed)."""
+    unit = math.lcm(ROWS1, d * lpf2_rows(d))
+    tiles = [k * unit for k in range(max(1, MAX_TILE // unit), 0, -1)]
+    # two blocks share an SM's 228 KB, each with 1 KB the runtime reserves
+    two = [t for t in tiles if front_shared_bytes(t1, t2, t) <= MAX_SHARED_BYTES // 2 - 1024]
+    one = [t for t in tiles if front_shared_bytes(t1, t2, t) <= MAX_SHARED_BYTES]
+    if not one:
+        raise ValueError(f"front kernel: taps {t1} / {t2} at d = {d} do not fit shared memory")
+    tile = (two or one)[0]
+    groups = -(-lanes // GROUP_LANES)
+    n_seg = max(1, sms * (2 if two else 1) // groups)
+    seg_rows = -(-(-(-block // n_seg)) // tile) * tile
+    return FrontPlan(tile=tile, warps=min(MAX_WARPS, tile // ROWS1), seg_rows=seg_rows,
+                     lead=-(-t2 // d) * d, segments=-(-block // seg_rows),
+                     shared_bytes=front_shared_bytes(t1, t2, tile))
+
+
+def dc_seg_rows(n2: int, lanes: int, sms: int = H100_SMS) -> int:
+    """DC FIR outputs a thread block: DC_BLOCKS_PER_SM blocks an SM over
+    the lane groups, in whole groups of DC_ROWS."""
+    n_seg = max(1, sms * DC_BLOCKS_PER_SM // -(-lanes // GROUP_LANES))
+    return -(-(-(-n2 // n_seg)) // DC_ROWS) * DC_ROWS
 
 
 def _tail(hist: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -252,36 +341,54 @@ def _front_cuda(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps, dop):
     if t3:
         _check("dc_hist", dc_hist, (t3 - 1, c), dev)
         _check("rev_dc", taps.rev_dc, (t3,), dev)
-    tab = xm = None
+    tab = None
     if dop is not None:
         check_dop(dop, b, c, dev)
         tab = _dop_table(dop)
-        xm = torch.empty_like(x)
-    n2 = b // d
-    y1 = torch.empty((b, c2), dtype=torch.float32, device=dev)
-    yq = torch.empty((b, c), dtype=torch.float32, device=dev)
-    y2 = torch.empty((n2, c), dtype=torch.float32, device=dev) if t3 else None
-    y3 = torch.empty((n2, c), dtype=torch.float32, device=dev)
+    plan = front_plan(b, c, t1, t2, d, torch.cuda.get_device_properties(dev).multi_processor_count)
+    y = torch.empty((b // d, c), dtype=torch.float32, device=dev)
+    lpf1_out = torch.empty((t1 - 1, c2), dtype=torch.float32, device=dev)
+    quad_out = torch.empty((1, c2), dtype=torch.float32, device=dev)
+    lpf2_out = torch.empty((t2 - 1, c), dtype=torch.float32, device=dev)
     lib = _build.load("front", _SIGNATURES)
-    started = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.front_forward(
             x.data_ptr(), b, c,
             tab.data_ptr() if tab is not None else None, tab.shape[1] if tab is not None else 0,
-            xm.data_ptr() if xm is not None else None,
             lpf1_hist.data_ptr(), taps.rev1.data_ptr(), t1,
             quad_prev.data_ptr(), taps.quad_gain, taps.atan_table.data_ptr(),
             lpf2_hist.data_ptr(), taps.rev2.data_ptr(), t2, d,
-            dc_hist.data_ptr() if t3 else None, taps.rev_dc.data_ptr() if t3 else None, t3,
-            y1.data_ptr(), yq.data_ptr(), y2.data_ptr() if t3 else None, y3.data_ptr(),
-            _stream(dev), ctypes.addressof(started),
+            plan.tile, plan.warps, plan.seg_rows, plan.lead,
+            y.data_ptr(), lpf1_out.data_ptr(), quad_out.data_ptr(), lpf2_out.data_ptr(), _stream(dev),
         )
-    launches += started.value
     _build.check(lib, rc, "front_forward")
-    front = (
-        _tail(lpf1_hist, x if xm is None else xm),
-        y1[b - 1 :].clone(),
-        _tail(lpf2_hist, yq),
-        _tail(dc_hist, y2) if t3 else dc_hist,
-    )
-    return y3, front
+    launches += 1
+    if not t3:
+        return y, (lpf1_out, quad_out, lpf2_out, dc_hist)
+    return dc_fir(y, dc_hist, taps), (lpf1_out, quad_out, lpf2_out, _tail(dc_hist, y))
+
+
+def dc_fir(y2, dc_hist, taps: FrontTaps):
+    """The DC blocker's FIR, y3 (n2, C) over [dc_hist | y2]: the fused
+    front's second launch (``csrc/front.cu:dc_fir_forward``) for a CUDA
+    tensor, the plain FIR for a CPU tensor."""
+    global launches
+    n2, c = y2.shape
+    t3 = taps.rev_dc.numel()
+    if _build.device_kind(y2, "dc_fir") == "cpu":
+        return conv1d_banded_tm_plain(torch.cat([dc_hist, y2]), taps.rev_dc, 1, n2)
+    dev = y2.device
+    _check("y2", y2, (n2, c), dev)
+    _check("dc_hist", dc_hist, (t3 - 1, c), dev)
+    _check("rev_dc", taps.rev_dc, (t3,), dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    y3 = torch.empty((n2, c), dtype=torch.float32, device=dev)
+    lib = _build.load("front", _SIGNATURES)
+    with torch.cuda.device(dev):
+        rc = lib.dc_fir_forward(
+            dc_hist.data_ptr(), y2.data_ptr(), n2, c, taps.rev_dc.data_ptr(), t3,
+            dc_seg_rows(n2, c, sms), y3.data_ptr(), _stream(dev),
+        )
+    _build.check(lib, rc, "dc_fir_forward")
+    launches += 1
+    return y3

@@ -14,7 +14,9 @@ plain side), an ulp apart: the mixed tail within 2e-6 and quad_prev within
 The clock, fed the same y3, is exact: both sum the interpolator in tap
 order and neither contracts a multiply and an add, and both walk each chunk
 in its own work buffer, at any number of B2's staged chunks a slot.  The fused and banded
-fronts run the same kernels in the same order: bit for bit.  The TX
+fronts sum every FIR output in tap order with one fmaf a tap and share the
+NCO's and the quad demod's device code: bit for bit, in y3 and the four
+tails, at every tile and segment edge of the fused kernel.  The TX
 kernels (B5, B6) within 1e-4 of their plain versions on I/Q and the phase
 (both carry the phase prefix in float64, summed in another order, and
 take cos/sin from two libraries), the exported history exact.  The ragged
@@ -77,8 +79,8 @@ def test_kernels_match_plain(cuda, name):
         args = lambda s: (x, s.lpf1_hist, s.quad_prev, s.lpf2_hist, s.dc_hist, pipe.front_taps)
         n0 = front_ops.launches
         y3_k, f_k = front_ops.fused_front(*args(st_k))
-        # a FIR kernel for each of LPF1, LPF2 and the DC blocker, one quad demod
-        assert front_ops.launches == n0 + (4 if CONFIGS[name][5] else 3)
+        # one kernel for the NCO, LPF1, the quad demod and LPF2, one for the DC FIR
+        assert front_ops.launches == n0 + (2 if CONFIGS[name][5] else 1)
         y3_p, f_p = front_ops.fused_front_plain(*args(st_p))
         torch.cuda.synchronize()
         torch.testing.assert_close(y3_k, y3_p, rtol=0, atol=1e-4)
@@ -127,7 +129,7 @@ def test_doppler_front_matches_plain(cuda):
         x = torch.from_numpy(rng.standard_normal((block, 2 * c)).astype(np.float32)).to(cuda)
         n0 = front_ops.launches
         y3_k, f_k = front_ops.fused_front(x, *st_k[:4], pipe.front_taps, dop)
-        assert front_ops.launches == n0 + 5  # NCO, LPF1, quad demod, LPF2, DC
+        assert front_ops.launches == n0 + 2  # NCO to LPF2 in one, then the DC FIR
         y3_p, f_p = front_ops.fused_front_plain(x, *st_p[:4], pipe.front_taps, dop)
         torch.cuda.synchronize()
         torch.testing.assert_close(y3_k, y3_p, rtol=0, atol=1e-4)
@@ -157,17 +159,98 @@ def test_fused_and_banded_fronts_bit_equal(cuda, name, with_dop):
         n0 = (front_ops.launches, fir_ops.launches)
         y3_f, f_f = front_ops.fused_front(x, *st_f[:4], pipe.front_taps, dop)
         y3_b, f_b = front_ops.banded_front(x, *st_b[:4], pipe.front_taps, dop)
-        # the FIRs are B3 launches in the banded front and front.cu's own in the
-        # fused one; the quad demod and the NCO are front.cu's in both
+        # the fused front is one kernel and the DC FIR; the banded front runs
+        # its FIRs through B3 and the quad demod and the NCO alone
         n_fir = 3 if CONFIGS[name][5] else 2
         stages = 1 + (dop is not None)
-        assert front_ops.launches == n0[0] + (n_fir + stages) + stages
+        assert front_ops.launches == n0[0] + (n_fir - 1) + stages
         assert fir_ops.launches == n0[1] + n_fir
         assert torch.equal(y3_f, y3_b)
         for a, b in zip(f_f, f_b):
             assert (a is None and b is None) or torch.equal(a, b)
         st_f = st_f._replace(lpf1_hist=f_f[0], quad_prev=f_f[1], lpf2_hist=f_f[2], dc_hist=f_f[3])
         st_b = st_b._replace(lpf1_hist=f_b[0], quad_prev=f_b[1], lpf2_hist=f_b[2], dc_hist=f_b[3])
+
+
+NAN_CONFIG = (240000, 9600, 5000, 1, 2000, True)  # tests/fixtures/inputnan.cf32's
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaN equal to NaN wherever either has one."""
+    if a is None or b is None:
+        return a is None and b is None
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+def _edge_tables(block, c, plan, rng, device):
+    """(S, C) Doppler tables whose rows start and end on the plan's tile and
+    segment edges and one row off them, on the even lanes; lane 3 has S
+    rows of one sample each from row 0; the rest have no rows."""
+    edges = {e + k for step in (plan.tile, plan.seg_rows) for e in range(step, block, step)
+             for k in (-1, 0, 1)}
+    cuts = sorted({0, *(e for e in edges if 0 < e < block), block})
+    s_rows = min(len(cuts) - 1, 24)
+    tables = [np.zeros((s_rows, c), np.float32) for _ in range(4)]
+    for lane in range(0, c, 2):
+        picks = np.sort(rng.choice(len(cuts) - 1, s_rows, replace=False))
+        for s, k in enumerate(picks):  # disjoint rows in row order; gaps between some
+            tables[0][s, lane] = cuts[k]
+            tables[1][s, lane] = cuts[k + 1]
+            tables[2][s, lane] = rng.uniform(-0.3, 0.3)
+            tables[3][s, lane] = rng.uniform(-np.pi, np.pi)
+    # lane 3: one-row rows from row 0, more than a tile's kept rows
+    tables[0][:, 3] = np.arange(s_rows)
+    tables[1][:, 3] = np.arange(1, s_rows + 1)
+    tables[2][:, 3] = 0.1
+    tables[3][:, 3] = 1.0
+    return doppler_tables_from_numpy(tables, c, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lucky7", "lucky7_nodc", "nusat", "nan"])
+@pytest.mark.parametrize("c", [5, 130, 300])
+@pytest.mark.parametrize("block", [64, 1000, 65536])
+def test_front_kernel_equals_banded(cuda, name, c, block):
+    """The fused front (two launches) against the banded front, bit for bit
+    in y3 and the four tails, three blocks with the state carried, without
+    and with Doppler rows on the tile and segment edges; a NaN stretch
+    across a segment edge in the second block."""
+    cfg = NAN_CONFIG if name == "nan" else CONFIGS[name]
+    pipe = DemodPipeline(FskDemodConfig(*cfg), block, device=cuda)
+    taps = pipe.front_taps
+    plan = front_ops.front_plan(block, c, taps.rev1.numel(), taps.rev2.numel(), taps.d,
+                                torch.cuda.get_device_properties(cuda).multi_processor_count)
+    rng = np.random.default_rng(block + c)
+    for with_dop in (False, True):
+        st_f = st_b = pipe.init_full_state(c)
+        for blk in range(3):
+            x = rng.standard_normal((block, 2 * c)).astype(np.float32)
+            if blk == 1:
+                edge = plan.seg_rows if plan.segments > 1 else block // 2
+                x[max(0, edge - 5) : edge + 5, [1, c + 1]] = np.nan
+            x = torch.from_numpy(x).to(cuda)
+            dop = _edge_tables(block, c, plan, rng, cuda) if with_dop else None
+            n0 = front_ops.launches
+            y3_f, f_f = front_ops.fused_front(x, *st_f[:4], taps, dop)
+            assert front_ops.launches == n0 + (2 if taps.rev_dc is not None else 1)
+            y3_b, f_b = front_ops.banded_front(x, *st_b[:4], taps, dop)
+            torch.cuda.synchronize()
+            assert _same_bits(y3_f, y3_b), (with_dop, blk, "y3")
+            for k, (a, b) in enumerate(zip(f_f, f_b)):
+                assert _same_bits(a, b), (with_dop, blk, k)
+            st_f = st_f._replace(lpf1_hist=f_f[0], quad_prev=f_f[1], lpf2_hist=f_f[2], dc_hist=f_f[3])
+            st_b = st_b._replace(lpf1_hist=f_b[0], quad_prev=f_b[1], lpf2_hist=f_b[2], dc_hist=f_b[3])
+
+
+@pytest.mark.cuda
+def test_front_kernel_layout_matches_plan(cuda):
+    """front_plan's shared-memory bytes are front.cu's Layout."""
+    lib = front_ops._build.load("front", front_ops._SIGNATURES)
+    for t1, t2 in ((157, 57), (185, 231), (589, 289)):
+        for tile in (16, 48, 96, 128):
+            assert lib.front_shared_bytes(t1, t2, tile) == front_ops.front_shared_bytes(t1, t2, tile)
 
 
 @pytest.mark.cuda

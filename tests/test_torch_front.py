@@ -197,3 +197,35 @@ def test_fused_and_banded_fronts_bit_equal(resources_dir, name, with_dop):
             assert (a is None and b is None) or torch.equal(a, b)
         st_f = DemodStateFull(*f_f, st_f.clock)
         st_b = DemodStateFull(*f_b, st_b.clock)
+
+
+NAN_CONFIG = (240000, 9600, 5000, 1, 2000, True)  # tests/fixtures/inputnan.cf32's
+
+
+@pytest.mark.parametrize("name", [*CONFIGS, "nan"])
+def test_front_plan_covers_every_row(name):
+    """The fused kernel's host-side plan (ops/front.py:front_plan): its
+    segments cover every row of the block once, in order; a segment's walk
+    starts inside the block (its mixed-input history at or after the
+    carried one's first row) and early enough to recompute every LPF2
+    input of its first output; the layout fits one block's shared memory
+    and is front.cu's sum; lane groups x segments make one wave."""
+    cfg = FskDemodConfig(*(NAN_CONFIG if name == "nan" else CONFIGS[name]))
+    t1, t2, d = len(cfg.lpf1_taps()), len(cfg.lpf2_taps()), cfg.decimation
+    for block in (64, 4096, 262144, 1 << 20):
+        for lanes in (5, 128, 300):
+            plan = front_ops.front_plan(block, lanes, t1, t2, d)
+            segs = plan.segment_rows(block)
+            assert len(segs) == plan.segments and segs[0][0] == 0 and segs[-1][1] == block
+            assert all(b0 == a1 for (_, b0, _), (a1, _, _) in zip(segs, segs[1:]))
+            assert sum((b - a) // d for a, b, _ in segs) == block // d
+            for a, b, start in segs:
+                assert a < b and a % d == 0 and start % d == 0
+                assert start >= 0 and (start == 0 or a - start >= t2)
+            assert plan.tile % 16 == 0 and plan.tile % (d * front_ops.lpf2_rows(d)) == 0
+            assert plan.warps == min(8, plan.tile // 16)
+            assert plan.shared_bytes == front_ops.front_shared_bytes(t1, t2, plan.tile) <= 232448
+            per_sm = 2 if plan.shared_bytes <= 232448 // 2 - 1024 else 1
+            assert plan.segments * -(-lanes // 32) <= max(per_sm * 132, -(-lanes // 32))
+            dc_rows = front_ops.dc_seg_rows(block // d, lanes)
+            assert dc_rows % front_ops.DC_ROWS == 0 and -(-(block // d) // dc_rows) * -(-lanes // 32) <= 4 * 132
