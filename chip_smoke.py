@@ -16,9 +16,11 @@ Phases (any failure exits non-zero, and no result line is printed):
              slots (lanes scaled by 1e4 and 1e5, a late entry, NaN and inf
              across the edges, K filling, a block of 5 chunks and 100
              rows and one of 100 rows, 300 lanes), at its own slot size
-             and at one chunk a slot, bit for bit; B3 over the
-             lucky7 LPF2, LPF1 and DC taps at strides 1 and 2 with a band
-             offset, and B8; the front with Doppler tables from the raw
+             and at one chunk a slot, bit for bit; B3 and the float64 FIR
+             in both of the kernel's forms (wide: 128 lanes; narrow: 2
+             lanes and 1) over the lucky7 LPF2, LPF1 and DC taps at strides
+             1 and 2 with a band offset, and a 12,797-tap FIR, taps in
+             parts in both forms; B8; the front with Doppler tables from the raw
              lucky7 pass on 64 lanes (the other 64 without rows, which must
              equal a run without Doppler bit for bit); the fused and banded
              fronts bit for bit (y3 and the four tails), with and without
@@ -65,6 +67,10 @@ Phases (any failure exits non-zero, and no result line is printed):
              time a call, then the same calls split into host prep, upload,
              kernel, download and process_tx.  (e) process_pair_kernel on
              128 streams x 2048 B (B6), one warm-up and 20 timed calls.
+             (i) the server's step with long filters, 288 kHz / 9600 Bd
+             (707 / 347 / 1917 taps, past B1's layout) at 128 x 262144,
+             fanout, Doppler on: the banded front, B1 never launched, B3
+             three times a step, and the front against its plain version.
              (f) one exact-mode client (the server's default RX): the
              lucky7 capture over 16 blocks of 262144 through the exact
              streamer, ms a block and Msamples/s, then its stages and B4
@@ -79,7 +85,11 @@ Phases (any failure exits non-zero, and no result line is printed):
              Doppler, without, its first launch alone (lucky7_nodc) and its
              DC launch alone, which must give the front's y3 bit for bit;
              its row carries a second bound, the work of this design with
-             the DC blocker as a FIR.  B2 must
+             the DC blocker as a FIR; the same DC FIR through B3's wide
+             form, which must give the same bits.  B3 at the LPF1 shape
+             and, with the float64 FIR, at one client's three shapes (2 x
+             262300, 1 x 262200 at d = 2, 1 x 131708), each beside its
+             bound, its plain version and cuDNN's conv1d.  B2 must
              equal its plain version bit for bit at 128 x 2^20; then B2
              alone at 128, 512, 1024 and 4096 lanes x 2^19 rows, each
              tiled lane equal to the 128-lane run, and path (b)'s step at
@@ -132,6 +142,8 @@ MAIN_STEPS = 5
 FRONT_ATOL = 1e-4  # tests/test_fused_front.py:46
 MIXED_ATOL = 2e-6  # the NCO's cos and sin, an ulp apart (tests/test_torch_doppler.py)
 BAND_OFFSET = 37
+LONG_TAPS = (288000, 9600, 5000, 2, 2000, True)  # past B1's layout: the banded route (path (i))
+LONG_FIR_TAPS = 12797  # the DC FIR at 240 kHz / 1200 Bd: tap parts in both FIR forms
 SMALL_SLOT_ROWS = 64  # B4's staged rows a slot in the slot-edge gate
 B4_LANES = (128, 512, 1024)  # lanes of B4's timing alone, ROADMAP P1
 B2_EDGE_CHUNK = 256  # B2's chunk (SDRM_CLOCK_CHUNK) in its slot-edge gate
@@ -172,13 +184,14 @@ def capture_lanes(torch, dev, n, lanes, name="lucky7.expected.cf32"):
     return torch.cat([re[idx], im[idx]], dim=1).contiguous()
 
 
-def lane_dopplers(lanes):
-    """One Doppler corrector per lane, each on its own pass: even lanes
-    start a second apart, odd lanes carry their own constant offset."""
+def lane_dopplers(lanes, fs=DOPPLER["sampling_freq"]):
+    """One Doppler corrector per lane at sample rate fs, each on its own
+    pass: even lanes start a second apart, odd lanes carry their own
+    constant offset."""
     from sdrmodem_tpu_torch.dsp.doppler import Doppler
 
     return {
-        k: Doppler(**DOPPLER, start_time_seconds=PASS_START + (k if k % 2 == 0 else 0),
+        k: Doppler(**{**DOPPLER, "sampling_freq": fs}, start_time_seconds=PASS_START + (k if k % 2 == 0 else 0),
                    constant_offset=0 if k % 2 == 0 else 50 * k)
         for k in lanes
     }
@@ -191,7 +204,8 @@ def doppler_tables(dops, block, lanes, dev, max_batch=None):
     from sdrmodem_tpu_torch.utils.convert import doppler_tables_from_numpy, segment_tables
 
     rows = {k: d.device_segments(block, +1, max_batch=max_batch) for k, d in dops.items()}
-    s_rows = Doppler.max_rows(block, DOPPLER["sampling_freq"], max_batch)
+    fs = int(next(iter(dops.values())).fs) if dops else DOPPLER["sampling_freq"]
+    s_rows = Doppler.max_rows(block, fs, max_batch)
     return doppler_tables_from_numpy(segment_tables(rows, s_rows, lanes), lanes, device=dev)
 
 
@@ -244,7 +258,8 @@ def counters():
     from sdrmodem_tpu_torch.ops import step as step_ops
     from sdrmodem_tpu_torch.ops import tx as tx_ops
 
-    return {"front": (front_ops, "launches"), "clock": (clock_ops, "launches"),
+    return {"front": (front_ops, "launches"), "front_fused": (front_ops, "fused_launches"),
+            "clock": (clock_ops, "launches"),
             "step": (step_ops, "launches"),
             "clock_ragged": (clock_ops, "ragged_launches"),
             "fir": (fir_ops, "launches"), "fir_tpu": (fir_ops, "fir_tpu_launches"),
@@ -364,21 +379,40 @@ def lucky7_taps():
 
 
 def check_fir(torch, dev):
-    """B3 and B8 vs plain at 128 lanes x 65536; the last windows run off
-    the end of the input (rows past it read as zeros)."""
+    """B3 and the float64 FIR against their plain versions in both of the
+    kernel's forms: the wide one at 128 lanes x 65536 and the narrow one at
+    two lanes and one (one client's stream), with the lucky7 LPF2, LPF1
+    and DC taps (the DC FIR in tap parts in the wide form) at strides 1 and
+    2 and a band offset, the last windows running off the end of the input
+    (rows past it read as zeros); a 12,797-tap FIR (the DC blocker at 240
+    kHz / 1200 Bd, in tap parts in both forms); B8 at d = 1 and 2.  float32
+    within FRONT_ATOL, the float64 FIR bit for bit."""
     from sdrmodem_tpu_torch.ops import fir as fir_ops
 
     x = capture_lanes(torch, dev, CHECK_BLOCK, LANES)[:, :LANES].contiguous()
-    err = {}
-    for name, rev in lucky7_taps().items():
+    rng = np.random.default_rng(12797)
+    long_rev = (rng.standard_normal(LONG_FIR_TAPS) / np.sqrt(LONG_FIR_TAPS)).astype(np.float32)
+    cases = [(name, rev, lanes, stride, CHECK_BLOCK // stride)
+             for name, rev in lucky7_taps().items() for lanes in (LANES, 2, 1) for stride in (1, 2)]
+    cases += [("long", long_rev, lanes, 1, CHECK_BLOCK // 4) for lanes in (LANES, 2)]
+    err, forms = {}, {}
+    for name, rev, lanes, stride, n_out in cases:
+        xs = x[:, :lanes].contiguous()
         rev_t = torch.from_numpy(rev).to(dev)
-        for stride in (1, 2):
-            n_out = CHECK_BLOCK // stride
-            y = fir_ops.conv1d_banded_tm(x, rev_t, stride, n_out, col_offset=BAND_OFFSET)
-            y_p = fir_ops.conv1d_banded_tm_plain(x, rev_t, stride, n_out, col_offset=BAND_OFFSET)
-            torch.cuda.synchronize()
-            need(y.shape == (n_out, LANES) and torch.isfinite(y).all().item(), f"fir {name}: output")
-            err[f"conv1d_banded_tm {name} T={len(rev)} stride={stride}"] = (y - y_p).abs().max().item()
+        plan = fir_ops.fir_plan(n_out, lanes, len(rev), stride)
+        tag = f"{name} T={len(rev)} lanes={lanes} stride={stride}"
+        y = fir_ops.conv1d_banded_tm(xs, rev_t, stride, n_out, col_offset=BAND_OFFSET)
+        y_p = fir_ops.conv1d_banded_tm_plain(xs, rev_t, stride, n_out, col_offset=BAND_OFFSET)
+        y64 = fir_ops.conv1d_exact_tm(xs, rev_t, stride, n_out, col_offset=BAND_OFFSET)
+        y64_p = fir_ops.conv1d_exact_tm_plain(xs, rev_t, stride, n_out, col_offset=BAND_OFFSET)
+        torch.cuda.synchronize()
+        need(y.shape == (n_out, lanes) and torch.isfinite(y).all().item(), f"fir {tag}: output")
+        need(torch.equal(y64, y64_p), f"the float64 FIR ({tag}) differs from its plain version")
+        err[f"conv1d_banded_tm {tag}"] = (y - y_p).abs().max().item()
+        forms[tag] = f"{'wide' if plan.wide else 'narrow'}, {len(plan.parts)} part(s)"
+    for form in ("wide", "narrow"):
+        need(any(f.startswith(form) and not f.endswith(" 1 part(s)") for f in forms.values()),
+             f"fir: no case of the {form} form walked its taps in parts: {forms}")
     taps = lucky7_taps()["lpf2"][::-1].copy()
     for d in (1, 2):
         y = fir_ops.fir_tpu(x, taps, d)
@@ -386,7 +420,8 @@ def check_fir(torch, dev):
         torch.cuda.synchronize()
         need(y.shape == (-(-CHECK_BLOCK // d), LANES), "fir_tpu: output shape")
         err[f"fir_tpu T={len(taps)} d={d}"] = (y - y_p).abs().max().item()
-    log(f"[check] fir: max |kernel - plain| {json.dumps(err)} (band offset {BAND_OFFSET})")
+    log(f"[check] fir: max |kernel - plain| {json.dumps(err)} (band offset {BAND_OFFSET}); the float64 "
+        f"FIR equal to its plain version bit for bit in every case; forms {json.dumps(forms)}")
     need(max(err.values()) <= FRONT_ATOL, f"fir kernels differ from plain by {max(err.values())}")
 
 
@@ -1028,9 +1063,9 @@ def step_cost(c, b, taps, d, dop, sfx, n_chunks, k, symbols):
     return 4 * words, front_flops + 30 * symbols
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1297,9 +1332,9 @@ def phase_main(torch, dev):
         step = pipe.make_batched_step_full(layout=layout)
         t0 = time.perf_counter()
         (ms, first, outs, fin), counts = counted(
-            torch, f"(a) {layout} 128 x 2^20", ("front", "clock"),
+            torch, f"(a) {layout} 128 x 2^20", ("front_fused", "clock"),
             lambda: drive(torch, step, pipe.init_full_state(c), [(x,)] * (MAIN_STEPS + 1)),
-            never=("step",),
+            never=("step", "fir"),
         )
         add(counts)
         results[layout] = dict(first=first, last=outs[-1], ms_step=ms, run=(first, outs, fin))
@@ -1360,8 +1395,8 @@ def phase_main(torch, dev):
         f"({tables[0][0].shape[0]} rows a step) built on the host in {time.perf_counter() - t0:.3f} s, "
         "outside the timed window")
     server = {}
-    for front, want, never in (("fused", ("front", "clock"), ("step",)),
-                               ("banded", ("front", "fir", "clock"), ("step",)),
+    for front, want, never in (("fused", ("front_fused", "clock"), ("step", "fir")),
+                               ("banded", ("front", "fir", "clock"), ("step", "front_fused")),
                                ("step", ("step",), ("front", "fir", "clock"))):
         step = spipe.make_batched_step_full("pallas", doppler=True, layout="fanout", front=front)
         (ms, first, outs, fin), counts = counted(
@@ -1434,9 +1469,11 @@ def phase_main(torch, dev):
         add(counts)
     ragged, counts = path_ragged_step(torch, dev)
     add(counts)
+    long_taps, counts = path_long_taps(torch, dev)
+    add(counts)
     log(f"[main] launches over every main-path run: {json.dumps(totals)}")
     return dict(totals=totals, fir_tpu_ms=fir_tpu_ms, x_fir=x_fir, y_fir=y_fir, lpf2=lpf2,
-                tx_server=tx_server, tx_batched=tx_batched, streams=streams, ragged=ragged,
+                tx_server=tx_server, tx_batched=tx_batched, streams=streams, ragged=ragged, long_taps=long_taps,
                 b4_b2=b4_b2, server_ms={k: v["ms_step"] for k, v in server.items()}, step_ms=step_ms,
                 front_err=max(front_errs), fir_err=max(fir_errs.values()))
 
@@ -1641,6 +1678,63 @@ def path_ragged_step(torch, dev):
     res["b4_shape"] = f"{c} x {work.shape[1]}"
     log(f"[main] (h) B4 alone (channel-major): {b4_time(ms, res['b4_shape'], counts, res['b4_bound'])}")
     return res, total
+
+
+def gfsk_stream(fs, baud, deviation, n, seed):
+    """(2, n) float32 I and Q on the host: a GFSK signal (random bits, a
+    Gaussian frequency pulse over four bits, ``deviation`` Hz) with a
+    little noise."""
+    rng = np.random.default_rng(seed)
+    sps = fs // baud
+    nrz = np.repeat(rng.integers(0, 2, n // sps + 1) * 2.0 - 1.0, sps)[:n]
+    pulse = np.exp(-0.5 * (np.arange(-2 * sps, 2 * sps + 1) / (0.5 * sps)) ** 2)
+    freq = np.convolve(nrz, pulse / pulse.sum(), mode="same")
+    iq = np.exp(1j * np.cumsum(2 * np.pi * deviation / fs * freq))
+    iq += 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return np.stack([iq.real, iq.imag]).astype(np.float32)
+
+
+def path_long_taps(torch, dev):
+    """(i) the server's step with long filters: 288 kHz at 9600 Bd (LPF1
+    707 taps, LPF2 347, DC 1917), past B1's shared-memory layout, so
+    make_batched_step_full(front="fused") takes the banded front, chosen
+    when the step is built: 128 lanes x 262144, one shared GFSK stream,
+    each lane's Doppler rows.  B1 must never launch, B3 three times a step.
+    Then the banded front on the first step's inputs against its plain
+    version."""
+    from sdrmodem_tpu_torch.dsp.clock_recovery import chunk_plan
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.ops import front as front_ops
+
+    c, bs = LANES, SERVER_BLOCK
+    fs, baud, deviation = LONG_TAPS[:3]
+    pipe = DemodPipeline(FskDemodConfig(*LONG_TAPS), bs, device=dev)
+    taps = pipe.front_taps
+    need(not pipe.fused_front_available(), "(i): B1 takes these taps; no long-filter route is driven")
+    x = torch.from_numpy(gfsk_stream(fs, baud, deviation, (MAIN_STEPS + 1) * bs, 21)).to(dev)
+    dops = lane_dopplers(range(c), fs)
+    tables = [doppler_tables(dops, bs, c, dev) for _ in range(MAIN_STEPS + 1)]
+    inputs = [(x[:, k * bs : (k + 1) * bs].contiguous(), t) for k, t in enumerate(tables)]
+    step = pipe.make_batched_step_full("pallas", doppler=True, layout="fanout")
+    (ms, first, outs, _), counts = counted(
+        torch, f"(i) server {c} x {bs} fanout doppler, {fs} Hz / {baud} Bd (taps {taps.rev1.numel()} / "
+        f"{taps.rev2.numel()} / {taps.rev_dc.numel()})", ("front", "fir", "clock"),
+        lambda: drive(torch, step, pipe.init_full_state(c), inputs), never=("front_fused", "step"))
+    need(counts["fir"] == 3 * len(inputs), f"(i): {counts['fir']} B3 launches over {len(inputs)} steps")
+    p = pipe.config.clock_params()
+    sfx = pipe.init_full_state(1).clock.suffix.shape[0]
+    n2 = bs // pipe.config.decimation
+    chunk = chunk_plan(n2, c, sfx, **p)["chunk"]
+    for sym, cnt in (first, outs[-1]):
+        check_outputs(torch, "(i)", sym, cnt, c, n2 // chunk, chunk / p["omega"])
+    st = pipe.init_full_state(c)
+    front_args = (pipe.to_time_major(inputs[0][0], c, "fanout"), *st[:4], taps, tables[0])
+    err = hold_front(f"(i) banded front {c} x {bs}, Doppler", front_ops.banded_front(*front_args),
+                     front_ops.fused_front_plain(*front_args), doppler=True)
+    log(f"[main] (i) long filters through the banded front: {ms:.4f} ms/step (CUDA events), "
+        f"{c * bs / (ms * 1e-3) / 1e6:.1f} Msamples/s [{card()}]")
+    return dict(ms_step=ms, front_err=err), counts
 
 
 def ragged_clock_cost(c, w, k, symbols):
@@ -1915,6 +2009,17 @@ def phase_kernels(torch, dev, main):
     front_ops.dc_fir(y2, state.dc_hist, taps)
     dc_ms, y3_dc = cuda_ms(torch, lambda: front_ops.dc_fir(y2, state.dc_hist, taps), 3)
     need(torch.equal(y3_dc, y3), "the DC launch on lucky7_nodc's output differs from lucky7's y3")
+    # the same FIR through B3's wide form on [dc_hist | y2]: the same order, so the same bits
+    dc_work = torch.cat([state.dc_hist, y2])
+    n2 = y2.shape[0]
+    fir_ops.conv1d_banded_tm(dc_work, taps.rev_dc, 1, n2)
+    dc_wide_ms, y3_w = cuda_ms(torch, lambda: fir_ops.conv1d_banded_tm(dc_work, taps.rev_dc, 1, n2), 3)
+    need(torch.equal(y3_w, y3), "B3's wide form at the DC launch's shape differs from B1's DC launch")
+    dc_bound = bound(*fir_cost(dc_work.shape[0], c, n2, taps.rev_dc.numel()))
+    log(f"[kernels] the DC FIR at {c} x {n2} ({taps.rev_dc.numel()} taps): B1's DC launch "
+        f"(fir_blocked_tm_kernel) {dc_ms:.4f} ms, B3's wide form {dc_wide_ms:.4f} ms, equal bit for bit; "
+        f"bound {dc_bound[0]:.4f} ms by {dc_bound[1]} [{card()}]")
+    del dc_work, y3_w
     log(f"[kernels] front (B1) at {c} x {b}: with Doppler ({s_rows} rows) {front_ms:.4f} ms, without "
         f"{nodop_ms:.4f} ms; lucky7_nodc with Doppler (launch 1 alone) {nodc_ms:.4f} ms; the DC launch "
         f"alone {dc_ms:.4f} ms, equal to the front's y3 bit for bit [{card()}]; the banded route's NCO "
@@ -1937,6 +2042,42 @@ def phase_kernels(torch, dev, main):
         F.conv1d(work_cn, w1)
         lib_ms, _ = cuda_ms(torch, lambda: F.conv1d(work_cn, w1), 3)
     del work_cn
+
+    # ---- B3 and the float64 FIR at one client's shapes (paths (f), (g)): one
+    # block of 262144, LPF1 on I and Q, LPF2 at d = 2, the DC FIR
+    bs = SERVER_BLOCK
+    t2s, t3s = taps.rev2.numel(), taps.rev_dc.numel()
+    shapes = {"lpf1": (x_tm[: bs + t1 - 1, [0, c]].contiguous(), taps.rev1, 1, bs),
+              "lpf2": (x_tm[: bs + t2s - 1, :1].contiguous(), taps.rev2, 2, bs // 2),
+              "dc": (x_tm[: bs // 2 + t3s - 1, :1].contiguous(), taps.rev_dc, 1, bs // 2)}
+    stream = {}
+    for name, (xs, rev, stride, n_out) in shapes.items():
+        nbytes, flops = fir_cost(xs.shape[0], xs.shape[1], n_out, rev.numel())
+        x_cn = xs.T.contiguous().unsqueeze(1)
+        for kind, fn, plain_fn, rate, dtype in (
+                ("f32", fir_ops.conv1d_banded_tm, fir_ops.conv1d_banded_tm_plain, F32_FLOP_PER_S, torch.float32),
+                ("f64", fir_ops.conv1d_exact_tm, fir_ops.conv1d_exact_tm_plain, F64_FLOP_PER_S, torch.float64)):
+            call = functools.partial(fn, xs, rev, stride, n_out)
+            call()
+            ms, y = graph_ms(torch, call, 20)
+            wrapper_ms, _ = cuda_ms(torch, call, 20)
+            plain_ms, y_p = cuda_ms(torch, functools.partial(plain_fn, xs, rev, stride, n_out), 2)
+            e = (y - y_p).abs().max().item()
+            need(e <= FRONT_ATOL and (kind == "f32" or torch.equal(y, y_p)),
+                 f"{name} {kind} at one client's shape differs from its plain version ({e})")
+            lib_x, lib_w = x_cn.to(dtype), rev.view(1, 1, -1).to(dtype)
+            with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+                F.conv1d(lib_x, lib_w, stride=stride)
+                lib = cuda_ms(torch, lambda: F.conv1d(lib_x, lib_w, stride=stride), 20)[0]
+            b_ms, b_by = bound(nbytes, flops, rate)
+            stream[f"{name} {kind}"] = dict(shape=f"{xs.shape[1]} x {xs.shape[0]}, T={rev.numel()}, "
+                                                  f"stride {stride}", ms=ms, wrapper_ms=wrapper_ms,
+                                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                                            max_abs_err=e)
+    block64 = sum(v["ms"] for k, v in stream.items() if k.endswith("f64"))
+    log(f"[kernels] B3 (f32) and the float64 FIR at one client's shapes (ms: device time of one call "
+        f"alone from a CUDA graph, the wrapper's time a call back to back, plain, bound, conv1d): "
+        f"{json.dumps(stream)}; the three float64 FIRs of one block {block64:.4f} ms [{card()}]")
 
     # ---- fir_tpu (B8) at path (c)'s shape
     x_fir, lpf2 = main["x_fir"], main["lpf2"]
@@ -2015,10 +2156,10 @@ def phase_kernels(torch, dev, main):
     fir_err = max(fir_err, main["fir_err"])
     return [
         dict(name="front", route="cuda", source="sdrmodem_tpu_torch/csrc/front.cu",
-             replaces="sdrmodem_tpu/ops/pallas_front.py:118", launches=launches["front"],
+             replaces="sdrmodem_tpu/ops/pallas_front.py:118", launches=launches["front_fused"],
              max_abs_err=front_err, ms=front_ms, plain_ms=front_plain_ms, bound_ms=f_bound,
              bound_by=f_by, library_ms=lib_ms, bound_dc_fir_ms=fd_bound, bound_dc_fir_by=fd_by,
-             nodop_ms=nodop_ms, nodc_ms=nodc_ms, dc_ms=dc_ms),
+             nodop_ms=nodop_ms, nodc_ms=nodc_ms, dc_ms=dc_ms, dc_bound_ms=dc_bound[0]),
         dict(name="clock", route="cuda", source="sdrmodem_tpu_torch/csrc/clock.cu",
              replaces="sdrmodem_tpu/ops/pallas_clock.py:326", launches=launches["clock"],
              max_abs_err=clock_err, ms=clock_ms, plain_ms=clock_plain_ms, bound_ms=c_bound,
@@ -2026,7 +2167,14 @@ def phase_kernels(torch, dev, main):
         dict(name="fir", route="cuda", source="sdrmodem_tpu_torch/csrc/fir.cu",
              replaces="sdrmodem_tpu/ops/pallas_fir.py:119", launches=launches["fir"],
              max_abs_err=fir_err, ms=fir_ms, plain_ms=fir_plain_ms, bound_ms=r_bound,
-             bound_by=r_by, library_ms=lib_ms),
+             bound_by=r_by, library_ms=lib_ms, dc_shape_ms=dc_wide_ms,
+             stream_ms={k: v["ms"] for k, v in stream.items() if k.endswith("f32")}),
+        dict(name="fir_exact", route="cuda", source="sdrmodem_tpu_torch/csrc/fir.cu",
+             replaces="sdrmodem_tpu/dsp/fir.py:71", launches=launches["fir_exact"], max_abs_err=0.0,
+             ms=stream["lpf1 f64"]["ms"], plain_ms=stream["lpf1 f64"]["plain_ms"],
+             bound_ms=stream["lpf1 f64"]["bound_ms"], bound_by=stream["lpf1 f64"]["bound_by"],
+             library_ms=stream["lpf1 f64"]["library_ms"], shape=stream["lpf1 f64"]["shape"],
+             lpf2_ms=stream["lpf2 f64"]["ms"], dc_ms=stream["dc f64"]["ms"], block_ms=block64),
         dict(name="fir_tpu", route="cuda", source="sdrmodem_tpu_torch/csrc/fir.cu",
              replaces="sdrmodem_tpu/ops/pallas_fir.py:261", launches=launches["fir_tpu"],
              max_abs_err=fir_tpu_err, ms=main["fir_tpu_ms"], plain_ms=fir_tpu_plain_ms,

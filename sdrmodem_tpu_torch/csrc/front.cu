@@ -56,6 +56,7 @@
 #include "fir.cuh"
 #include "nco.cuh"
 #include "quad.cuh"
+#include "stage.cuh"
 
 namespace {
 
@@ -107,13 +108,6 @@ struct Layout {
     total = o;
   }
 };
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // The last h1, h1 and h2 rows of [history | n new rows] in xi, xq and yq
 // (rows of kGroupLanes floats) become their histories: buf[0, h) = buf[n,

@@ -59,7 +59,7 @@ from sdrmodem_tpu_torch.dsp.fir import conv1d, conv1d_banded
 from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig, float_to_int8
 from sdrmodem_tpu_torch.ops._build import resolve_device
 from sdrmodem_tpu_torch.ops.clock import default_bank
-from sdrmodem_tpu_torch.ops.front import FrontTaps, banded_front, fused_front
+from sdrmodem_tpu_torch.ops.front import FrontTaps, banded_front, front_tile, fused_front
 from sdrmodem_tpu_torch.ops.step import DEFAULT_CHUNK, check_step, fused_step
 
 LAYOUTS = ("cm", "tm", "fanout")
@@ -402,6 +402,17 @@ class DemodPipeline:
             )
         return x.contiguous()
 
+    def fused_front_available(self) -> bool:
+        """Whether the fused front (B1) takes this pipeline: the float32
+        path with the LUT arctangent, and taps whose histories and tile fit
+        one block's shared memory (``ops/front.py:front_tile``).  Where
+        not, ``make_batched_step_full(front="fused")`` takes the banded
+        front, as the JAX package does where B1 has no tile.  It answers on
+        any device."""
+        if self.exact or not is_lut_mode(self.use_atan_lut):
+            return False
+        return front_tile(len(self._t1), len(self._t2), self.config.decimation) is not None
+
     def fused_step_available(self, channels: int, chunk: int = DEFAULT_CHUNK) -> bool:
         """Whether ``front="step"`` (B7) takes this block: whole clock
         chunks, ``block % (d * chunk) == 0``, and a chunk that holds the
@@ -476,10 +487,12 @@ class DemodPipeline:
         block of whole chunks, ``block % (d * chunk) == 0``, and raises
         ``ValueError`` otherwise: the JAX package then takes the fused
         front by itself, the port does not hide the kernel.  These are
-        arguments, and no environment variable is read.  The JAX package
-        falls back to "banded" by itself when a block has no legal TPU tile;
-        the port's fused front takes any block with ``block % d == 0``, so
-        it never falls back.
+        arguments, and no environment variable is read.  "fused" takes the
+        banded front where ``fused_front_available()`` is False: filters
+        too long for B1's shared-memory layout (LPF1 past ~690 taps, e.g.
+        288 kHz at 9600 Bd), as the JAX package takes it where B1 has no
+        TPU tile.  The choice is made here, once, from the taps; both
+        routes give the same bits.
 
         With ``doppler=True`` the step takes ``dop = (starts, ends, adjs,
         ph0s)``, each an (S, C) float32 tensor on the pipeline's device with
@@ -507,6 +520,8 @@ class DemodPipeline:
             raise ValueError(f"unknown layout {layout!r}")
         p = self._clockp
         front_fn = FRONTS.get(front)
+        if front == "fused" and not self.fused_front_available():
+            front_fn = banded_front
 
         def step(state: DemodStateFull, x: torch.Tensor, dop=None):
             c = state.quad_prev.shape[1] // 2

@@ -15,7 +15,13 @@ Counterpart of ``sdrmodem_tpu/ops/pallas_fir.py``:
   with ``exact=True``, an XLA convolution there), with its own launch count.
 
 All launch ``csrc/fir.cu`` for a CUDA tensor and run the plain version
-for a CPU tensor.  ``conv1d_banded_tm_plain`` sums as the kernel does: one
+for a CPU tensor.  The kernel reads its input in place, rows past the end
+as zeros (``fir_tpu``'s T - 1 leading zeros too), in one of two forms that
+``fir_plan`` picks by the lanes: the wide form (32 lanes a block, tiles of
+outputs staged in shared memory) or the narrow one (threads over the
+outputs of one lane, one client's stream); both walk long filters in tap
+parts and give the same bits.  ``conv1d_banded_tm_plain`` sums as the
+kernel does: one
 fused multiply-add a tap, in tap order, each taken in float64 (where the
 product of two float32 is exact) and rounded once to float32, which is
 fmaf's result barring a tie of the double rounding.  The front end's FIRs
@@ -27,6 +33,8 @@ for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,21 +47,101 @@ exact_launches = 0  # float64-accumulated fir kernels launched by conv1d_exact_t
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _FIR_ARGS = [
-    _P, _I, _P, _I,  # x_tm, lanes, rev taps, ntaps
-    _I, _I, _I, _P,  # stride, col_offset, n_out, y
-    _P,  # stream
+    _P, _L, _P, _L, _I,  # hist (or null: zeros), h, x, x_rows, lanes
+    _P, _I, _I, _I,  # rev taps, ntaps, stride, n_out
+    _I, _I, _I, _P, _P,  # the plan's form, part and segment; y, stream
 ]
-_SIGNATURES = {"fir_tm_forward": _FIR_ARGS, "fir_exact_tm_forward": _FIR_ARGS}
+_SIGNATURES = {
+    "fir_tm_forward": _FIR_ARGS,
+    "fir_exact_tm_forward": _FIR_ARGS,
+    "fir_shared_bytes": [_I, _I, _I],
+}
+
+# csrc/fir.cuh's geometry (kFirWarps, kNarrowThreads, kFirBufferBytes)
+WIDE_LANES = 32  # lanes a wide block; fewer lanes take the narrow form
+FIR_WARPS = 8  # warps of a wide block, rows_a_thread outputs of a tile each
+NARROW_THREADS = 128  # threads of a narrow block
+FIR_BUFFER_BYTES = 57600  # one stage buffer: two a block, two blocks an SM
+H100_SMS = 132
+WIDE_WAVES = 16  # wide segments: the lane groups fill the SMs this many times
 
 
-def _padded(x_tm: torch.Tensor, rows: int) -> torch.Tensor:
-    """x_tm with zero rows appended up to ``rows`` (the JAX contract: rows
-    past the end read as zeros)."""
-    short = rows - x_tm.shape[0]
-    if short <= 0:
-        return x_tm
-    return torch.cat([x_tm, x_tm.new_zeros((short, x_tm.shape[1]))], dim=0)
+def rows_a_thread(wide: bool, stride: int) -> int:
+    """Outputs a thread (``fir_rows_a_thread``): the register window slides
+    at strides 1 and 2, odd in the narrow form; other strides take the D =
+    0 form."""
+    if wide:
+        return {1: 24, 2: 16}.get(stride, 4)
+    return {1: 15, 2: 7}.get(stride, 5)
+
+
+def _tile(wide: bool, stride: int) -> int:
+    return (FIR_WARPS if wide else NARROW_THREADS) * rows_a_thread(wide, stride)
+
+
+def _stage_step(stride: int, part: int) -> int:
+    """Rows between consecutive outputs' windows in a stage
+    (``fir_stage_step``)."""
+    return part if stride > 2 and part < stride else stride
+
+
+def _buffer_floats(wide: bool, stride: int, part: int) -> int:
+    rows = (_tile(wide, stride) - 1) * _stage_step(stride, part) + part
+    return -(-part // 4) * 4 + -(-rows * (WIDE_LANES if wide else 1) // 4) * 4
+
+
+def fir_shared_bytes(wide: bool, stride: int, part: int) -> int:
+    """Bytes of shared memory of one block: two stage buffers
+    (``csrc/fir.cu:fir_shared_bytes``)."""
+    return 2 * 4 * _buffer_floats(wide, stride, part)
+
+
+class FirPlan(NamedTuple):
+    """How ``fir_tm_forward`` cuts one FIR: the form (``wide``: 32 lanes a
+    block, else one), ``tile`` outputs a stage, ``rows_a_thread`` of them a
+    thread, the taps in ``parts`` ((j0, j1) each, in order) of at most
+    ``part`` taps, ``seg`` outputs a block, ``blocks`` blocks."""
+
+    wide: bool
+    lanes_a_block: int
+    tile: int
+    rows_a_thread: int
+    part: int
+    parts: tuple
+    seg: int
+    blocks: int
+    shared_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def fir_plan(n_out: int, lanes: int, ntaps: int, stride: int, sms: int = H100_SMS) -> FirPlan:
+    """The wide form for 32 lanes or more, else the narrow; the taps in
+    the fewest parts whose stage buffer fits FIR_BUFFER_BYTES, of equal
+    length; wide segments so that the lane groups fill ``sms`` SMs
+    WIDE_WAVES times, in whole tiles, at most 65535 a lane group."""
+    wide = lanes >= WIDE_LANES
+    tile = _tile(wide, stride)
+    lo, hi = 1, ntaps  # the longest part that fits: the buffer grows with the part
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if 4 * _buffer_floats(wide, stride, mid) <= FIR_BUFFER_BYTES else (lo, mid - 1)
+    n_parts = -(-ntaps // lo)
+    part = -(-ntaps // n_parts)
+    parts = tuple((j, min(ntaps, j + part)) for j in range(0, ntaps, part))
+    if wide:
+        groups = -(-lanes // WIDE_LANES)
+        n_seg = max(1, WIDE_WAVES * sms // groups)
+        seg = max(-(-n_out // n_seg), -(-n_out // 65535))
+        seg = -(-seg // tile) * tile
+        blocks = groups * -(-n_out // seg)
+    else:
+        seg = tile
+        blocks = lanes * -(-n_out // tile)
+    return FirPlan(wide=wide, lanes_a_block=WIDE_LANES if wide else 1, tile=tile,
+                   rows_a_thread=rows_a_thread(wide, stride), part=part, parts=parts, seg=seg,
+                   blocks=blocks, shared_bytes=fir_shared_bytes(wide, stride, part))
 
 
 def _check_shape(x_tm, rev_taps, stride, n_out, col_offset):
@@ -67,11 +155,14 @@ def _check_shape(x_tm, rev_taps, stride, n_out, col_offset):
 
 
 def _plain(x_tm, rev_taps, stride, n_out, col_offset, acc_dtype):
-    """Tap-order FIR through float64, the sum kept in ``acc_dtype``."""
+    """Tap-order FIR through float64, the sum kept in ``acc_dtype``; rows
+    past the end of x_tm read as zeros."""
     _check_shape(x_tm, rev_taps, stride, n_out, col_offset)
     t = rev_taps.numel()
     span = (n_out - 1) * stride + 1
-    work = _padded(x_tm, col_offset + span + t - 1)[col_offset:].double()
+    work = x_tm[col_offset:].double()
+    if work.shape[0] < span + t - 1:
+        work = torch.nn.functional.pad(work, (0, 0, 0, span + t - 1 - work.shape[0]))
     acc = torch.zeros((n_out, x_tm.shape[1]), dtype=acc_dtype, device=x_tm.device)
     for j, tap in enumerate(rev_taps.double().tolist()):
         acc = torch.add(acc, work[j : j + span : stride], alpha=tap).to(acc_dtype)
@@ -89,21 +180,24 @@ def conv1d_exact_tm_plain(x_tm, rev_taps, stride: int, n_out: int, *, col_offset
     return _plain(x_tm, rev_taps, stride, n_out, col_offset, torch.float64)
 
 
-def _fir_cuda(x_tm, rev_taps, stride, n_out, col_offset, entry="fir_tm_forward"):
-    _check_shape(x_tm, rev_taps, stride, n_out, col_offset)
-    dev = x_tm.device
+def _fir_cuda(x, rev_taps, stride, n_out, *, col_offset=0, zeros_before=0, entry="fir_tm_forward"):
+    """The kernel over [zeros_before rows of zeros | x[col_offset:] | zeros]."""
+    _check_shape(x, rev_taps, stride, n_out, col_offset)
+    dev = x.device
     t = rev_taps.numel()
-    x_tm = _padded(x_tm, (n_out - 1) * stride + col_offset + t)
-    _build.check_arg("fir", "x_tm", x_tm, tuple(x_tm.shape), torch.float32, dev)
+    _build.check_arg("fir", "x_tm", x, tuple(x.shape), torch.float32, dev)
     _build.check_arg("fir", "rev_taps", rev_taps, (t,), torch.float32, dev)
-    lanes = x_tm.shape[1]
+    rows, lanes = x.shape
+    skip = min(col_offset, rows)
+    plan = fir_plan(n_out, lanes, t, stride, torch.cuda.get_device_properties(dev).multi_processor_count)
     y = torch.empty((n_out, lanes), dtype=torch.float32, device=dev)
     lib = _build.load("fir", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, entry)(
-            x_tm.data_ptr(), lanes, rev_taps.data_ptr(), t,
-            stride, col_offset, n_out, y.data_ptr(), stream,
+            None, zeros_before, x.data_ptr() + 4 * skip * lanes, rows - skip, lanes,
+            rev_taps.data_ptr(), t, stride, n_out, int(plan.wide), plan.part, plan.seg,
+            y.data_ptr(), stream,
         )
     _build.check(lib, rc, entry)
     return y
@@ -116,7 +210,7 @@ def conv1d_banded_tm(x_tm, rev_taps, stride: int, n_out: int, *, col_offset: int
     global launches
     if _build.device_kind(x_tm, "conv1d_banded_tm") == "cpu":
         return conv1d_banded_tm_plain(x_tm, rev_taps, stride, n_out, col_offset=col_offset)
-    y = _fir_cuda(x_tm, rev_taps, stride, n_out, col_offset)
+    y = _fir_cuda(x_tm, rev_taps, stride, n_out, col_offset=col_offset)
     launches += 1
     return y
 
@@ -128,25 +222,24 @@ def conv1d_exact_tm(x_tm, rev_taps, stride: int, n_out: int, *, col_offset: int 
     global exact_launches
     if _build.device_kind(x_tm, "conv1d_exact_tm") == "cpu":
         return conv1d_exact_tm_plain(x_tm, rev_taps, stride, n_out, col_offset=col_offset)
-    y = _fir_cuda(x_tm, rev_taps, stride, n_out, col_offset, "fir_exact_tm_forward")
+    y = _fir_cuda(x_tm, rev_taps, stride, n_out, col_offset=col_offset, entry="fir_exact_tm_forward")
     exact_launches += 1
     return y
 
 
-def _fresh_filter(x, taps):
-    """(T - 1 leading zeros | x) and the reversed float32 taps on x's device."""
+def _rev_taps(taps, device):
+    """The reversed float32 taps on ``device``."""
     if isinstance(taps, torch.Tensor):
         taps = taps.to(torch.float32)
     else:  # a copy, so a reversed numpy view converts too
         taps = torch.from_numpy(np.array(taps, np.float32))
-    rev = taps.flip(0).to(x.device).contiguous()
-    x_pad = torch.cat([x.new_zeros((rev.numel() - 1, x.shape[1])), x], dim=0)
-    return x_pad, rev
+    return taps.flip(0).to(device).contiguous()
 
 
 def fir_tpu_plain(x, taps, decimation: int = 1):
     """Plain version of ``fir_tpu``."""
-    x_pad, rev = _fresh_filter(x, taps)
+    rev = _rev_taps(taps, x.device)
+    x_pad = torch.cat([x.new_zeros((rev.numel() - 1, x.shape[1])), x], dim=0)
     d = int(decimation)
     return conv1d_banded_tm_plain(x_pad, rev, d, -(-x.shape[0] // d))
 
@@ -159,8 +252,8 @@ def fir_tpu(x, taps, decimation: int = 1):
     global fir_tpu_launches
     if _build.device_kind(x, "fir_tpu") == "cpu":
         return fir_tpu_plain(x, taps, decimation)
-    x_pad, rev = _fresh_filter(x, taps)
+    rev = _rev_taps(taps, x.device)
     d = int(decimation)
-    y = _fir_cuda(x_pad, rev, d, -(-x.shape[0] // d), 0)
+    y = _fir_cuda(x, rev, d, -(-x.shape[0] // d), zeros_before=rev.numel() - 1)
     fir_tpu_launches += 1
     return y

@@ -19,7 +19,10 @@ LPF1 reads the mixed block, and lpf1_hist' is the mixed block's tail.
   y2];
 - ``banded_front`` launches the NCO and quad-demod kernels one at a time
   (``nco_mix``, ``quad_demod``) and its FIRs through B3
-  (``ops/fir.py:conv1d_banded_tm``) over [history | block].
+  (``ops/fir.py:conv1d_banded_tm``) over [history | block].  It takes any
+  taps; ``fused_front`` takes those whose histories and tile fit one
+  block's shared memory (``front_tile``), and the pipeline's step takes the
+  banded front for the others (``DemodPipeline.fused_front_available``).
 
 Both sum every FIR output in tap order with one rounding a tap and take
 the NCO and the quad demod with the same device code, so on the card they
@@ -47,6 +50,7 @@ from sdrmodem_tpu_torch.ops import _build
 from sdrmodem_tpu_torch.ops.fir import conv1d_banded_tm, conv1d_banded_tm_plain
 
 launches = 0  # kernels launched by this module's wrappers; a run resets and reads it
+fused_launches = 0  # of those, B1's own (front_forward, dc_fir_forward): 0 on the banded route
 
 # the NCO compares the row index in float32, exact below 2^24 (as the TPU
 # kernel does, pallas_front.py:189-191)
@@ -140,21 +144,31 @@ def front_shared_bytes(t1: int, t2: int, tile: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def front_plan(block: int, lanes: int, t1: int, t2: int, d: int, sms: int = H100_SMS) -> FrontPlan:
+def front_tile(t1: int, t2: int, d: int) -> tuple[int, bool] | None:
     """The largest tile (at most MAX_TILE rows, a multiple of 16 and of
     LPF2's d * rows a thread) whose layout lets two blocks share an SM, else
-    the largest that fits one; then enough segments that the lane groups
-    fill ``sms`` SMs once.  A later segment recomputes t2 rows rounded up to
-    d before its first (the mixed input's t1 - 1 rows of history before
-    those are loaded, not computed)."""
+    the largest that fits one, and whether two blocks share an SM; None
+    where no tile fits (long filters: the banded front takes those)."""
     unit = math.lcm(ROWS1, d * lpf2_rows(d))
     tiles = [k * unit for k in range(max(1, MAX_TILE // unit), 0, -1)]
     # two blocks share an SM's 228 KB, each with 1 KB the runtime reserves
     two = [t for t in tiles if front_shared_bytes(t1, t2, t) <= MAX_SHARED_BYTES // 2 - 1024]
     one = [t for t in tiles if front_shared_bytes(t1, t2, t) <= MAX_SHARED_BYTES]
     if not one:
+        return None
+    return (two or one)[0], bool(two)
+
+
+@functools.lru_cache(maxsize=64)
+def front_plan(block: int, lanes: int, t1: int, t2: int, d: int, sms: int = H100_SMS) -> FrontPlan:
+    """``front_tile``'s tile (ValueError where none fits); then enough
+    segments that the lane groups fill ``sms`` SMs once.  A later segment
+    recomputes t2 rows rounded up to d before its first (the mixed input's
+    t1 - 1 rows of history before those are loaded, not computed)."""
+    fit = front_tile(t1, t2, d)
+    if fit is None:
         raise ValueError(f"front kernel: taps {t1} / {t2} at d = {d} do not fit shared memory")
-    tile = (two or one)[0]
+    tile, two = fit
     groups = -(-lanes // GROUP_LANES)
     n_seg = max(1, sms * (2 if two else 1) // groups)
     seg_rows = -(-(-(-block // n_seg)) // tile) * tile
@@ -322,7 +336,7 @@ def _check(name, t, shape, device):
 
 
 def _front_cuda(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps, dop):
-    global launches
+    global launches, fused_launches
     b, c2 = x.shape
     c = c2 // 2
     d = taps.d
@@ -363,6 +377,7 @@ def _front_cuda(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps, dop):
         )
     _build.check(lib, rc, "front_forward")
     launches += 1
+    fused_launches += 1
     if not t3:
         return y, (lpf1_out, quad_out, lpf2_out, dc_hist)
     return dc_fir(y, dc_hist, taps), (lpf1_out, quad_out, lpf2_out, _tail(dc_hist, y))
@@ -372,7 +387,7 @@ def dc_fir(y2, dc_hist, taps: FrontTaps):
     """The DC blocker's FIR, y3 (n2, C) over [dc_hist | y2]: the fused
     front's second launch (``csrc/front.cu:dc_fir_forward``) for a CUDA
     tensor, the plain FIR for a CPU tensor."""
-    global launches
+    global launches, fused_launches
     n2, c = y2.shape
     t3 = taps.rev_dc.numel()
     if _build.device_kind(y2, "dc_fir") == "cpu":
@@ -391,4 +406,5 @@ def dc_fir(y2, dc_hist, taps: FrontTaps):
         )
     _build.check(lib, rc, "dc_fir_forward")
     launches += 1
+    fused_launches += 1
     return y3

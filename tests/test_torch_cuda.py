@@ -284,6 +284,138 @@ def test_fir_tpu_kernel_matches_plain(cuda, decim):
     torch.testing.assert_close(y, y_p, rtol=0, atol=1e-5)
 
 
+FORM_LANES = [1, 2, 3, 31, 32, 33, 130]
+FORM_TAPS = [1, 57, 157, 637, 12797]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", FORM_TAPS)
+@pytest.mark.parametrize("stride", [1, 2, 3])
+@pytest.mark.parametrize("lanes", FORM_LANES)
+def test_fir_forms_match_plain(cuda, lanes, stride, t):
+    """Both forms of the FIR kernel (narrow below 32 lanes, wide from 32)
+    against the plain versions, through all three faces: B3 with a band
+    offset and its last windows past the input's end, the float64 FIR and
+    B8 (T - 1 leading zeros); 4001 outputs, no multiple of any form's
+    outputs a thread.  637 taps take tap parts in the wide form, 12,797 in
+    both.  float32 within 1e-5; the float64 FIR bit for bit."""
+    rng = np.random.default_rng(lanes * 1000 + stride * 100 + t)
+    rev = torch.from_numpy((rng.standard_normal(t) / np.sqrt(t)).astype(np.float32)).to(cuda)
+    n_out, col_offset = 4001, 5
+    rows = (n_out - 1) * stride + col_offset + t - 11
+    x = torch.from_numpy(rng.standard_normal((rows, lanes)).astype(np.float32)).to(cuda)
+    plan = fir_ops.fir_plan(n_out, lanes, t, stride)
+    assert plan.wide == (lanes >= 32)
+    if t == 12797 or (t == 637 and plan.wide and stride == 1):
+        assert len(plan.parts) > 1
+    n0 = (fir_ops.launches, fir_ops.exact_launches, fir_ops.fir_tpu_launches)
+    y = fir_ops.conv1d_banded_tm(x, rev, stride, n_out, col_offset=col_offset)
+    y64 = fir_ops.conv1d_exact_tm(x, rev, stride, n_out, col_offset=col_offset)
+    taps = rev.flip(0)
+    y8 = fir_ops.fir_tpu(x, taps, stride)
+    assert (fir_ops.launches, fir_ops.exact_launches, fir_ops.fir_tpu_launches) == tuple(n + 1 for n in n0)
+    y_p = fir_ops.conv1d_banded_tm_plain(x, rev, stride, n_out, col_offset=col_offset)
+    y64_p = fir_ops.conv1d_exact_tm_plain(x, rev, stride, n_out, col_offset=col_offset)
+    y8_p = fir_ops.fir_tpu_plain(x, taps, stride)
+    torch.cuda.synchronize()
+    assert y.shape == y64.shape == (n_out, lanes) and y8.shape == (-(-rows // stride), lanes)
+    torch.testing.assert_close(y, y_p, rtol=0, atol=1e-5)
+    assert torch.equal(y64, y64_p)
+    torch.testing.assert_close(y8, y8_p, rtol=0, atol=1e-5)
+    assert y[0].abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_fir_shared_bytes_match_plan(cuda):
+    """fir_plan's shared-memory bytes are fir.cu's fir_shared_bytes."""
+    lib = fir_ops._build.load("fir", fir_ops._SIGNATURES)
+    for wide in (False, True):
+        for stride in (1, 2, 3, 7, 40):
+            for part in (1, 5, 57, 313, 2000):
+                assert lib.fir_shared_bytes(int(wide), stride, part) == fir_ops.fir_shared_bytes(wide, stride, part)
+    for t in (157, 637, 12797, 65533):
+        for lanes in (1, 2, 128):
+            for stride in (1, 2, 3):
+                plan = fir_ops.fir_plan(262144, lanes, t, stride)
+                assert lib.fir_shared_bytes(int(plan.wide), stride, plan.part) == plan.shared_bytes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [637, 12797, 61437])
+def test_dc_fir_takes_any_tap_count(cuda, t):
+    """B1's DC launch (fir_blocked_tm_kernel) past 48 KB of taps, and past
+    one block's shared memory (61,437 taps: the DC FIR at 480 samples a
+    symbol, taps read through L1), against B3's staged form on [dc_hist |
+    y2] bit for bit (the same order) and the plain FIR within 1e-5."""
+    rng = np.random.default_rng(t)
+    c, n2 = 64, 3000
+    taps = DemodPipeline(FskDemodConfig(*CONFIGS["lucky7"]), 4096, device=cuda).front_taps
+    taps = taps._replace(rev_dc=torch.from_numpy((rng.standard_normal(t) / np.sqrt(t)).astype(np.float32)).to(cuda))
+    y2 = torch.from_numpy(rng.standard_normal((n2, c)).astype(np.float32)).to(cuda)
+    hist = torch.from_numpy(rng.standard_normal((t - 1, c)).astype(np.float32)).to(cuda)
+    n0 = front_ops.launches
+    y3 = front_ops.dc_fir(y2, hist, taps)
+    assert front_ops.launches == n0 + 1
+    work = torch.cat([hist, y2])
+    staged = fir_ops.conv1d_banded_tm(work, taps.rev_dc, 1, n2)
+    plain = fir_ops.conv1d_banded_tm_plain(work, taps.rev_dc, 1, n2)
+    torch.cuda.synchronize()
+    assert torch.equal(y3, staged)
+    torch.testing.assert_close(y3, plain, rtol=0, atol=1e-5)
+
+
+LONG_TAPS = (288000, 9600, 5000, 2, 2000, True)  # LPF1 707 taps, LPF2 347, DC 1917
+
+
+def _gfsk_lanes(fs, baud, deviation, n, lanes, seed):
+    """(lanes, 2, n) float32: a GFSK signal a lane with a little noise
+    (tests/test_torch_front.py:gfsk_lanes; that module imports jax)."""
+    rng = np.random.default_rng(seed)
+    sps = fs // baud
+    out = np.empty((lanes, 2, n), np.float32)
+    for k in range(lanes):
+        nrz = np.repeat(rng.integers(0, 2, n // sps + 1) * 2.0 - 1.0, sps)[:n]
+        pulse = np.exp(-0.5 * (np.arange(-2 * sps, 2 * sps + 1) / (0.5 * sps)) ** 2)
+        freq = np.convolve(nrz, pulse / pulse.sum(), mode="same")
+        iq = np.exp(1j * np.cumsum(2 * np.pi * deviation / fs * freq))
+        iq += 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+        out[k, 0], out[k, 1] = iq.real, iq.imag
+    return out
+
+
+@pytest.mark.cuda
+def test_long_tap_step_takes_banded_route(cuda):
+    """288 kHz at 9600 Bd, where B1 has no layout: the server's call
+    ``make_batched_step_full(doppler=True, layout="fanout")`` runs on the
+    card through the banded front, B1 never launched, three FIR launches a
+    step (LPF1 707 taps and the DC FIR 1917 in tap parts), the NCO and the
+    quad demod kernels; against the same step on the CPU (the plain
+    versions): counts equal, symbols within 1 LSB (the mixed block's cos and
+    sin, and the quad demod's table arctangent, come from two
+    implementations, an ulp apart)."""
+    c, block = 4, 8192
+    pipe = DemodPipeline(FskDemodConfig(*LONG_TAPS), block, device=cuda)
+    host = DemodPipeline(FskDemodConfig(*LONG_TAPS), block, device="cpu")
+    assert not pipe.fused_front_available()
+    step = pipe.make_batched_step_full(doppler=True, layout="fanout")
+    step_h = host.make_batched_step_full(doppler=True, layout="fanout")
+    dop_args = {**DOPPLER, "sampling_freq": 288000}
+    dops = {k: Doppler(**dop_args, constant_offset=700 * k) for k in (0, 2, 3)}
+    s_rows = Doppler.max_rows(block, 288000)
+    x_all = _gfsk_lanes(288000, 9600, 5000, 3 * block, 1, 5)[0]
+    st, st_h = pipe.init_full_state(c), host.init_full_state(c)
+    for k in range(3):
+        x = torch.from_numpy(x_all[:, k * block : (k + 1) * block].copy())
+        tables = segment_tables({lane: d.device_segments(block, +1) for lane, d in dops.items()}, s_rows, c)
+        n0 = (front_ops.fused_launches, fir_ops.launches, front_ops.launches)
+        st, sym, cnt = step(st, x.to(cuda), doppler_tables_from_numpy(tables, c, device=cuda))
+        assert (front_ops.fused_launches, fir_ops.launches, front_ops.launches) == (n0[0], n0[1] + 3, n0[2] + 2)
+        st_h, sym_h, cnt_h = step_h(st_h, x, doppler_tables_from_numpy(tables, c, device="cpu"))
+        torch.cuda.synchronize()
+        assert torch.equal(cnt.cpu(), cnt_h) and cnt.sum() > c * 0.9 * block / 2 / 15
+        assert (sym.cpu().int() - sym_h.int()).abs().max() <= 1
+
+
 TX_ATOL = 1e-4
 
 

@@ -95,3 +95,43 @@ def test_fir_rejects_bad_arguments():
         fir_ops.conv1d_banded_tm(x, rev, 0, 8)
     with pytest.raises(ValueError, match="rev_taps"):
         fir_ops.conv1d_banded_tm(x, torch.ones((2, 2)), 1, 8)
+
+
+# the tap counts of the long-filter configurations (LPF1, LPF2, DC at fs,
+# baud, deviation, d, transition width): lucky7, nan, 288000/9600,
+# 480000/9600, 48000/1200 and 240000/1200, and MAX_SPS's DC FIR
+# (4 * 32 * 512 - 3, dsp/clock_recovery.py:MAX_SPS)
+PLAN_TAPS = [157, 57, 637, 589, 289, 3197, 707, 347, 1917, 1179, 579, 963, 2557, 4819, 2891, 12797, 65533]
+
+
+@pytest.mark.parametrize("t", PLAN_TAPS)
+def test_fir_plan_covers_tap_counts(t):
+    """``fir_plan`` never raises: the wide form from 32 lanes, the narrow
+    below; its tap parts cover [0, T) in order, none longer than ``part``;
+    two stage buffers fit a block's 232,448 bytes (two blocks an SM); wide
+    segments are whole tiles, at most 65535 a lane group; the narrow form
+    cuts one stream of 262144 outputs into at least 132 blocks."""
+    for lanes in (1, 2, 31, 32, 128, 256):
+        for stride in (1, 2, 3):
+            for n_out in (1, 1000, 262144, 1 << 20):
+                plan = fir_ops.fir_plan(n_out, lanes, t, stride)
+                assert plan.wide == (lanes >= 32)
+                assert plan.lanes_a_block == (32 if plan.wide else 1)
+                assert plan.parts[0][0] == 0 and plan.parts[-1][1] == t
+                assert all(a1 == b0 for (_, a1), (b0, _) in zip(plan.parts, plan.parts[1:]))
+                assert all(0 < j1 - j0 <= plan.part for j0, j1 in plan.parts)
+                assert plan.shared_bytes == fir_ops.fir_shared_bytes(plan.wide, stride, plan.part)
+                assert plan.shared_bytes <= 2 * fir_ops.FIR_BUFFER_BYTES <= 232448 // 2
+                threads = fir_ops.FIR_WARPS if plan.wide else fir_ops.NARROW_THREADS
+                assert plan.tile == plan.rows_a_thread * threads
+                if plan.wide:
+                    segs = -(-n_out // plan.seg)
+                    assert plan.seg % plan.tile == 0 and segs <= 65535
+                    assert plan.blocks == segs * -(-lanes // 32)
+                else:
+                    assert plan.seg == plan.tile and plan.blocks == lanes * -(-n_out // plan.tile)
+                    if n_out == 262144 and stride == 1:
+                        assert plan.blocks >= 132 * lanes
+                # one part wherever the whole filter fits a buffer
+                if 4 * fir_ops._buffer_floats(plan.wide, stride, t) <= fir_ops.FIR_BUFFER_BYTES:
+                    assert len(plan.parts) == 1

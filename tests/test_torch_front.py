@@ -229,3 +229,92 @@ def test_front_plan_covers_every_row(name):
             assert plan.segments * -(-lanes // 32) <= max(per_sm * 132, -(-lanes // 32))
             dc_rows = front_ops.dc_seg_rows(block // d, lanes)
             assert dc_rows % front_ops.DC_ROWS == 0 and -(-(block // d) // dc_rows) * -(-lanes // 32) <= 4 * 132
+
+
+LONG_TAPS = (288000, 9600, 5000, 2, 2000, True)  # LPF1 707 taps, LPF2 347, DC 1917
+ROUTES = {  # config, whether B1's layout takes its taps
+    "lucky7": (CONFIGS["lucky7"], True),
+    "lucky7_nodc": (CONFIGS["lucky7_nodc"], True),
+    "nusat": (CONFIGS["nusat"], True),
+    "nan": (NAN_CONFIG, True),
+    "288k_9600": (LONG_TAPS, False),
+    "480k_9600": ((480000, 9600, 5000, 2, 2000, True), False),
+    "48k_1200": ((48000, 1200, 600, 2, 200, True), False),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_fused_front_available(name):
+    """B1's layout takes the four fixture configurations' taps and not the
+    long filters of the faster or slower radios: ``fused_front_available``
+    answers from ``front_tile`` on the CPU, and ``front_plan`` raises where
+    no tile fits."""
+    cfg, fits = ROUTES[name]
+    pipe = DemodPipeline(FskDemodConfig(*cfg), 4096, device="cpu")
+    taps = pipe.front_taps
+    t1, t2, d = taps.rev1.numel(), taps.rev2.numel(), taps.d
+    assert pipe.fused_front_available() is fits
+    assert (front_ops.front_tile(t1, t2, d) is not None) is fits
+    if not fits:
+        with pytest.raises(ValueError, match="do not fit shared memory"):
+            front_ops.front_plan(4096, 4, t1, t2, d)
+    assert not DemodPipeline(FskDemodConfig(*cfg), 4096, exact=True, device="cpu").fused_front_available()
+
+
+def gfsk_lanes(fs, baud, deviation, n, lanes, seed):
+    """(lanes, 2, n) float32: a GFSK signal a lane (random bits, Gaussian
+    frequency pulse over four bits, deviation in Hz) with a little noise."""
+    rng = np.random.default_rng(seed)
+    sps = fs // baud
+    out = np.empty((lanes, 2, n), np.float32)
+    for k in range(lanes):
+        nrz = np.repeat(rng.integers(0, 2, n // sps + 1) * 2.0 - 1.0, sps)[:n]
+        pulse = np.exp(-0.5 * (np.arange(-2 * sps, 2 * sps + 1) / (0.5 * sps)) ** 2)
+        freq = np.convolve(nrz, pulse / pulse.sum(), mode="same")
+        iq = np.exp(1j * np.cumsum(2 * np.pi * deviation / fs * freq))
+        iq += 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+        out[k, 0], out[k, 1] = iq.real, iq.imag
+    return out
+
+
+def test_long_tap_step_matches_jax(monkeypatch):
+    """288 kHz at 9600 Bd, where B1 has no layout: ``make_batched_step_full()``
+    takes the banded front, chosen when the step is built (the fused front
+    is never called), and its symbols follow the JAX package's step on the
+    same numpy input: 3 lanes of GFSK, block 4096, two blocks with the state
+    carried.  Counts equal and symbols within ±2 LSB: the JAX FIRs sum the
+    same products in another order (SDRM_FIR_PRECISION=highest, float32-
+    exact products)."""
+    import sdrmodem_tpu_torch.dsp.pipeline as pipeline_mod
+
+    monkeypatch.setenv("SDRM_FIR_PRECISION", "highest")
+    c, block = 3, 4096
+    calls = []
+
+    def banded(*args):
+        calls.append(len(calls))
+        return front_ops.banded_front(*args)
+
+    def fused(*args):
+        raise AssertionError("the fused front has no layout for these taps")
+
+    monkeypatch.setattr(pipeline_mod, "banded_front", banded)
+    monkeypatch.setitem(pipeline_mod.FRONTS, "fused", fused)
+    pipe = DemodPipeline(FskDemodConfig(*LONG_TAPS), block, device="cpu")
+    step = pipe.make_batched_step_full()
+    jpipe = JaxPipeline(JaxConfig(*LONG_TAPS), block, exact=False, use_atan_lut="free")
+    jstep = jpipe.make_batched_step_full("scan")
+    state, jstate = pipe.init_full_state(c), jpipe.init_full_state(c)
+    x_all = gfsk_lanes(288000, 9600, 5000, 2 * block, c, 11)
+    for k in range(2):
+        x = x_all[:, :, k * block : (k + 1) * block].copy()
+        state, sym, cnt = step(state, torch.from_numpy(x))
+        jstate, jsym, jcnt = jstep(jstate, jnp.asarray(x))
+        jsym, jcnt = np.asarray(jsym)[:c], np.asarray(jcnt)[:c]
+        assert np.array_equal(cnt.sum(1).numpy(), jcnt.sum(1))
+        for lane in range(c):
+            got = np.concatenate([sym[lane, j, :n].numpy() for j, n in enumerate(cnt[lane].tolist())])
+            want = np.concatenate([jsym[lane, j, :n] for j, n in enumerate(jcnt[lane].tolist())])
+            assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 2
+        assert jcnt.sum() > c * 0.9 * block / 2 / 15  # sps 15 after d = 2
+    assert len(calls) == 2
