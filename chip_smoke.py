@@ -93,9 +93,13 @@ Phases (any failure exits non-zero, and no result line is printed):
              equal its plain version bit for bit at 128 x 2^20; then B2
              alone at 128, 512, 1024 and 4096 lanes x 2^19 rows, each
              tiled lane equal to the 128-lane run, and path (b)'s step at
-             128 and 512 lanes (ROADMAP P1).  B7 at
+             128 and 512 lanes (ROADMAP P1), front "fused" and "step", each
+             "step" run equal to its "fused" run bit for bit.  B7 at
              128 x 2^20 with Doppler must equal B1 followed by B2 bit for
-             bit, and its plain version at 128 x 65536.
+             bit, timed beside the pair and beside B2 alone on the same y3
+             (the clock chain's floor), and its plain version at 128 x
+             65536.  Phase 1 prints every kernel's registers and spills,
+             B7's (step: fused_step_kernel) among them.
 
 Prints the card's name and power limit, one JSON line describing each
 kernel, and as its last line {"ok": true, "device": {...}}.  Exits non-zero
@@ -1937,9 +1941,11 @@ def b2_lanes(torch, pipe, y3):
 
 
 def server_lanes(torch, dev):
-    """Path (b)'s step (front "fused", Doppler rows on every lane) at each of
-    SERVER_LANES, one warm-up and MAIN_STEPS timed steps, outside the
-    counted runs.  Returns {lanes: ms a step}."""
+    """Path (b)'s step (Doppler rows on every lane) at each of SERVER_LANES,
+    front "fused" and then "step" (B7) on the same tables, one warm-up and
+    MAIN_STEPS timed steps each, outside the counted runs; every "step" run
+    must equal its "fused" run bit for bit.  Returns ({lanes: ms a step}
+    with "fused", {lanes: ms a step} with "step")."""
     from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
     from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
 
@@ -1947,17 +1953,23 @@ def server_lanes(torch, dev):
     spipe = DemodPipeline(FskDemodConfig(*LUCKY7), bs, device=dev)
     raw = capture_lanes(torch, dev, bs, 1, "lucky7.cf32")
     x_srv = torch.stack([raw[:, 0], raw[:, 1]]).contiguous()
-    step = spipe.make_batched_step_full("pallas", doppler=True, layout="fanout")
-    res = {}
+    res = {"fused": {}, "step": {}}
     for lanes in SERVER_LANES:
         dops = lane_dopplers(range(lanes))
         tables = [doppler_tables(dops, bs, lanes, dev) for _ in range(MAIN_STEPS + 1)]
-        ms, first, _, _ = drive(torch, step, spipe.init_full_state(lanes), [(x_srv, t) for t in tables])
-        need(int(first[1].sum().item()) > 0.9 * lanes * (bs // 2) / 5, f"(b) at {lanes} lanes: too few symbols")
-        res[lanes] = ms
-        log(f"[kernels] (b) server step at {lanes} lanes x {bs}: {ms:.4f} ms/step (CUDA events), "
-            f"{lanes * bs / (ms * 1e-3) / 1e6:.1f} Msamples/s [{card()}]")
-    return res
+        runs = {}
+        for front in res:
+            step = spipe.make_batched_step_full("pallas", doppler=True, layout="fanout", front=front)
+            ms, first, outs, fin = drive(torch, step, spipe.init_full_state(lanes), [(x_srv, t) for t in tables])
+            need(int(first[1].sum().item()) > 0.9 * lanes * (bs // 2) / 5,
+                 f"(b) {front} at {lanes} lanes: too few symbols")
+            res[front][lanes] = ms
+            runs[front] = (first, outs, fin)
+            log(f"[kernels] (b) server step, front={front}, at {lanes} lanes x {bs}: {ms:.4f} ms/step (CUDA "
+                f"events), {lanes * bs / (ms * 1e-3) / 1e6:.1f} Msamples/s [{card()}]")
+        hold_step(torch, f"(b) front=step at {lanes} lanes", runs["step"], runs["fused"])
+        del runs
+    return res["fused"], res["step"]
 
 
 def phase_kernels(torch, dev, main):
@@ -1967,6 +1979,7 @@ def phase_kernels(torch, dev, main):
     from sdrmodem_tpu_torch.dsp.clock_recovery import chunk_plan, clock_mm_batched_full
     from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
     from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.ops import _build
     from sdrmodem_tpu_torch.ops import clock as clock_ops
     from sdrmodem_tpu_torch.ops import fir as fir_ops
     from sdrmodem_tpu_torch.ops import front as front_ops
@@ -2116,7 +2129,7 @@ def phase_kernels(torch, dev, main):
     symbols = int(counts.sum().item())
     del o_p, c_p
     lanes = b2_lanes(torch, pipe, y3)
-    lanes["server step"] = server_lanes(torch, dev)
+    lanes["server step"], server_step_ms = server_lanes(torch, dev)
 
     # ---- step (B7): the same front with Doppler and clock in one launch,
     # bit for bit against the pair just run (B1 with Doppler, then B2)
@@ -2132,9 +2145,15 @@ def phase_kernels(torch, dev, main):
     step_plain_ms, step_err = check_step_plain(torch, dev)
     s_bound, s_by = bound(*step_cost(c, b, taps, pipe.config.decimation, dop, ck.suffix.shape[0],
                                      s_outs.shape[0], s_outs.shape[1], int(s_counts.sum().item())))
+    # the shared memory the launch asks for, from the kernel's own Layout
+    s_shared = _build.load("step", step_ops._SIGNATURES).step_shared_bytes(
+        t1, taps.rev2.numel(), taps.rev_dc.numel(), pipe.config.decimation, step_ops.DEFAULT_CHUNK,
+        ck.suffix.shape[0])
     log(f"[kernels] step (B7) at {c} x {b} with Doppler ({s_rows} rows) {step_ms:.4f} ms, equal to "
-        f"B1 + B2 bit for bit (the pair {front_ms:.4f} + {clock_ms:.4f} ms); bound {s_bound:.4f} "
-        f"ms by {s_by}; main-path steps {json.dumps(main['step_ms'])} ms")
+        f"B1 + B2 bit for bit; the pair {front_ms:.4f} + {clock_ms:.4f} = {front_ms + clock_ms:.4f} ms, "
+        f"the chain's floor (B2 alone on the same y3) {clock_ms:.4f} ms, B7 {step_ms / clock_ms:.3f}x it; "
+        f"bound {s_bound:.4f} ms by {s_by}; {s_shared} bytes of shared memory a block; main-path steps "
+        f"{json.dumps(main['step_ms'])} ms [{card()}]")
     del s_outs, s_counts, s_front, s_clock, step_state, pair_state
 
     f_bound, f_by = bound(*front_cost(c, b, taps, pipe.config.decimation, dop))
@@ -2183,7 +2202,7 @@ def phase_kernels(torch, dev, main):
              replaces="sdrmodem_tpu/ops/pallas_step.py:89", launches=launches["step"],
              max_abs_err=step_err, ms=step_ms, plain_ms=step_plain_ms,
              plain_at=f"{LANES} x {CHECK_BLOCK}, the check size", bound_ms=s_bound, bound_by=s_by,
-             library_ms=None),
+             library_ms=None, chain_ms=clock_ms, server_ms=server_step_ms),
     ]
 
 

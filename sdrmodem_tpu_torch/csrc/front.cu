@@ -63,8 +63,7 @@ namespace {
 constexpr int kGroupLanes = 32;    // lanes a thread block, one a thread of each warp
 constexpr int kRows1 = 16;         // LPF1 rows a thread
 constexpr int kMaxWarps = 8;
-constexpr int kKeepRows = 4;       // Doppler rows a thread keeps for a tile
-constexpr int kSegRows = 8;        // and for its segment
+constexpr int kSegRows = 8;        // Doppler rows a lane keeps for its segment
 constexpr int kMaxSharedBytes = 232448;  // what one block may have on an H100 (227 KB)
 
 struct FrontParams {
@@ -129,70 +128,22 @@ __device__ __forceinline__ void shift_histories(float* xi, float* xq, float* yq,
   }
 }
 
-// The Doppler rows of lane c that are active somewhere in rows [r0, r1],
-// in row order, up to kKeepRows of them.  Rows that meet none of those
-// rows add +0 to every sample's phase, so leaving them out keeps the bits.
-struct KeptRows {
-  float st[kKeepRows], en[kKeepRows], adj[kKeepRows], ph0[kKeepRows], stp[kKeepRows];
-  int n;         // rows kept
-  bool overflow;  // more than kKeepRows: take every row (nco_mix_sample)
-};
-
-// Keep table row s (start st, end en) if it meets [r0, r1].
-__device__ __forceinline__ void keep_row(const FrontParams& p, int c, int s, float st, float en,
-                                         float r0, float r1, KeptRows& k) {
-  if (!(st <= r1 && en > r0) || k.overflow) return;
-  if (k.n == kKeepRows) {
-    k.overflow = true;
-    return;
-  }
-  const long long plane = (long long)p.dop_rows * p.lanes;
-  const float* t = p.dop + (long long)s * p.lanes + c;
-  const float adj = t[2 * plane], ph0 = t[3 * plane], stp = t[4 * plane];
-#pragma unroll
-  for (int j = 0; j < kKeepRows; ++j) {  // slot k.n, named at compile time: no local memory
-    if (j == k.n) {
-      k.st[j] = st;
-      k.en[j] = en;
-      k.adj[j] = adj;
-      k.ph0[j] = ph0;
-      k.stp[j] = stp;
-    }
-  }
-  ++k.n;
-}
-
 // The rows for a tile [r0, r1], from the lane's segment list in shared
 // memory (dst, den, dix; dn rows), or from the whole table where the
 // segment met more than kSegRows.
 __device__ __forceinline__ void keep_rows(const FrontParams& p, const float* sm, const Layout& L,
-                                          int lane, int c, float r0, float r1, KeptRows& k) {
-  k.n = 0;
-  k.overflow = false;
+                                          int lane, int c, float r0, float r1, NcoKept& k) {
   const int n = (int)sm[L.dn + lane];
   if (n < 0) {
-    const long long plane = (long long)p.dop_rows * p.lanes;
-    for (int s = 0; s < p.dop_rows; ++s) {
-      const float* t = p.dop + (long long)s * p.lanes + c;
-      keep_row(p, c, s, t[0], t[plane], r0, r1, k);
-    }
+    nco_keep_rows(p.dop, p.dop_rows, p.lanes, c, r0, r1, k);
     return;
   }
+  nco_keep_none(k);
   for (int j = 0; j < n; ++j) {
     const int at = j * kGroupLanes + lane;
-    keep_row(p, c, (int)sm[L.dix + at], sm[L.dst + at], sm[L.den + at], r0, r1, k);
+    nco_keep_row(p.dop, p.dop_rows, p.lanes, c, (int)sm[L.dix + at], sm[L.dst + at], sm[L.den + at], r0,
+                 r1, k);
   }
-}
-
-__device__ __forceinline__ float2 mix_kept(const FrontParams& p, const KeptRows& k, int c,
-                                           float nrow, float i, float q) {
-  if (k.overflow) return nco_mix_sample(p.dop, p.dop_rows, p.lanes, c, nrow, i, q);
-  float ph = 0.f;
-#pragma unroll
-  for (int s = 0; s < kKeepRows; ++s) {
-    if (s < k.n) ph = __fadd_rn(ph, nco_row_phase(k.st[s], k.en[s], k.adj[s], k.ph0[s], k.stp[s], nrow));
-  }
-  return nco_rotate(ph, i, q);
 }
 
 // LPF2 over the tile: output m of the tile reads yq rows [m d, m d + t2).
@@ -309,10 +260,11 @@ __global__ void __launch_bounds__(kGroupLanes * kMaxWarps, 2) front_kernel(const
     }
     cp_async_wait_all();
     if (p.dop != nullptr && live) {
-      KeptRows kept;
+      NcoKept kept;
       keep_rows(p, sm, L, lane, c, (float)r, (float)(r + nv - 1), kept);
       for (int k = w; k < nv; k += warps) {
-        const float2 m = mix_kept(p, kept, c, (float)(r + k), xi_t[k * kGroupLanes], xq_t[k * kGroupLanes]);
+        const float2 m = nco_mix_kept(p.dop, p.dop_rows, p.lanes, kept, c, (float)(r + k),
+                                      xi_t[k * kGroupLanes], xq_t[k * kGroupLanes]);
         xi_t[k * kGroupLanes] = m.x;
         xq_t[k * kGroupLanes] = m.y;
       }

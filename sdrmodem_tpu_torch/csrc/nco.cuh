@@ -25,9 +25,9 @@
 // are the accurate library functions (no fast math).  A lane with no
 // active row gets phase 0 exactly, cos 1 and sin 0, and passes through
 // bit for bit.  The banded front runs it as its own launch ahead of LPF1;
-// the fused step (step.cu, B7) calls the same per-sample function on its
-// input tile, and the front (front.cu, B1) the same row phase and rotation
-// over only the rows that meet its tile.
+// the front (front.cu, B1) and the fused step (step.cu, B7) take the same
+// row phase and rotation over only the rows that meet their tile
+// (nco_mix_kept).
 
 #pragma once
 
@@ -71,6 +71,76 @@ __device__ __forceinline__ float2 nco_mix_sample(const float* __restrict__ tab, 
   for (int s = 0; s < s_rows; ++s) {
     const float* t = tab + (long long)s * lanes + c;
     ph = __fadd_rn(ph, nco_row_phase(t[0], t[plane], t[2 * plane], t[3 * plane], t[4 * plane], nrow));
+  }
+  return nco_rotate(ph, i, q);
+}
+
+// ---- the rows a tile meets: B1 (front.cu) and B7 (step.cu) mix a tile's
+// samples by only the table rows active somewhere in it
+
+constexpr int kNcoKeepRows = 4;  // Doppler rows a thread keeps for a tile
+
+// The Doppler rows of one lane that are active somewhere in a tile's rows
+// [r0, r1], in row order, up to kNcoKeepRows of them.  Rows that meet none
+// of the tile's rows add +0 to every sample's phase, so leaving them out
+// keeps the bits.
+struct NcoKept {
+  float st[kNcoKeepRows], en[kNcoKeepRows], adj[kNcoKeepRows], ph0[kNcoKeepRows], stp[kNcoKeepRows];
+  int n;          // rows kept
+  bool overflow;  // more than kNcoKeepRows: take every row (nco_mix_sample)
+};
+
+__device__ __forceinline__ void nco_keep_none(NcoKept& k) {
+  k.n = 0;
+  k.overflow = false;
+}
+
+// Keep row s of lane c of the (5, S, C) table tab (start st, end en) if it
+// meets [r0, r1].  Called in row order.
+__device__ __forceinline__ void nco_keep_row(const float* __restrict__ tab, int s_rows, int lanes, int c,
+                                             int s, float st, float en, float r0, float r1, NcoKept& k) {
+  if (!(st <= r1 && en > r0) || k.overflow) return;
+  if (k.n == kNcoKeepRows) {
+    k.overflow = true;
+    return;
+  }
+  const long long plane = (long long)s_rows * lanes;
+  const float* t = tab + (long long)s * lanes + c;
+  const float adj = t[2 * plane], ph0 = t[3 * plane], stp = t[4 * plane];
+#pragma unroll
+  for (int j = 0; j < kNcoKeepRows; ++j) {  // slot k.n, named at compile time: no local memory
+    if (j == k.n) {
+      k.st[j] = st;
+      k.en[j] = en;
+      k.adj[j] = adj;
+      k.ph0[j] = ph0;
+      k.stp[j] = stp;
+    }
+  }
+  ++k.n;
+}
+
+// Every row of lane c's table that meets [r0, r1], scanned from the table.
+__device__ __forceinline__ void nco_keep_rows(const float* __restrict__ tab, int s_rows, int lanes, int c,
+                                              float r0, float r1, NcoKept& k) {
+  nco_keep_none(k);
+  const long long plane = (long long)s_rows * lanes;
+  for (int s = 0; s < s_rows && !k.overflow; ++s) {
+    const float* t = tab + (long long)s * lanes + c;
+    nco_keep_row(tab, s_rows, lanes, c, s, t[0], t[plane], r0, r1, k);
+  }
+}
+
+// Lane c's sample (i, q) at block row nrow mixed by the kept rows, or by
+// the whole table where the tile met more rows than a thread keeps: the
+// bits of nco_mix_sample either way.
+__device__ __forceinline__ float2 nco_mix_kept(const float* __restrict__ tab, int s_rows, int lanes,
+                                               const NcoKept& k, int c, float nrow, float i, float q) {
+  if (k.overflow) return nco_mix_sample(tab, s_rows, lanes, c, nrow, i, q);
+  float ph = 0.f;
+#pragma unroll
+  for (int s = 0; s < kNcoKeepRows; ++s) {
+    if (s < k.n) ph = __fadd_rn(ph, nco_row_phase(k.st[s], k.en[s], k.adj[s], k.ph0[s], k.stp[s], nrow));
   }
   return nco_rotate(ph, i, q);
 }

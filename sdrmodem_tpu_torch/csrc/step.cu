@@ -10,36 +10,56 @@
 // mm_step.cuh) in the same order, and it walks each clock chunk through
 // B2's own chunk walk (mm_chunk.cuh), in the same partition.
 //
-// Bound on an H100: the front's bound (front.cu: ~1.5 ms of f32 operations
-// at 128 lanes x 2^20 with the lucky7 taps) plus the bytes of the IQ block
-// in and the symbols out; y3 never leaves the chip, so it costs nothing.
-// The clock adds a few tens of operations a symbol.  What bounds the clock
-// is neither: each lane is one chain of dependent symbols.
+// Bound on an H100: the front's operations (front.cu: ~1.5 ms of f32 work
+// at 128 lanes x 2^20 with the lucky7 taps, ~4.3 ms with the DC blocker
+// as the 637-tap FIR this kernel runs) plus the bytes of the IQ block in
+// and the symbols out; y3 never leaves the chip.  What bounds the whole is
+// neither: each lane's clock is one chain of dependent symbol steps
+// (~105k a lane at 2^20 rows), so the floor is that chain, B2's time
+// alone at the same shape.  The front exists to hide under it.
 //
-// Design: a plain first version.  One thread block owns one lane for the
-// whole block of samples, so blocks never wait on one another and any
-// number of lanes works.  The block walks the time tiles of r = d * chunk
+// Design: one thread block owns one lane for the whole block of samples
+// (the clock chain runs through it), so blocks never wait on one another
+// and any number of lanes works.  The block walks tiles of r = d * chunk
 // input rows, software-pipelined: in iteration g, eight producer warps run
-// the front for tile g into one of two y3 slots in shared memory, while
-// one thread of a ninth warp walks the clock over chunk g - 1 in the other
-// slot; a __syncthreads swaps them.  The producers order their own stages
-// with a named barrier that the clock's warp never waits on.  Each slot
-// holds [the previous chunk's last sfx rows | the chunk], the clock's
-// window over [suffix | y3].  Every FIR keeps its history in front of its
-// tile in shared memory and reads [history | tile] contiguously; after a
-// tile, the last (taps - 1) rows move to the front.
+// the front for tile g into one of two y3 slots in shared memory while
+// thread 0 of warp 3 walks the clock over chunk g - 1 in the other; one
+// __syncthreads a tile hands them over.  Each slot holds [the previous
+// chunk's last sfx rows | the chunk], the chunk's work buffer.  A block's
+// warp w issues from sub-partition (s + w) % 4 of its SM, s fixed for the
+// block (step_split.py reads it), and no producer sits on the walker's:
+// a walker that shares its sub-partition with busy producer warps waits
+// for issue slots at every dependent step, ~0.18-0.21 us a step against
+// B2's 0.124.  A second block on the same SM puts its producers there
+// (step_split.py at 264 lanes), so past one block an SM the walkers pace
+// the kernel.  The producers run the front as B1 and B3 run it:
+//   - the tile's raw rows are staged a tile ahead by cp.async into a
+//     buffer of their own; each producer mixes the rows it staged by the
+//     Doppler rows that meet the tile (nco.cuh: nco_keep_rows), picked
+//     from the lane's rows that meet the block, copied once into shared
+//     memory (the whole table in device memory past kDopRows of them):
+//     the raw rows' 4-byte copies would evict a table read through L1;
+//   - LPF1 runs on I and Q together through fir_block (fir.cuh), R1 rows a
+//     thread plus the row before them, taps broadcast from shared memory,
+//     so each input load feeds R1 + 1 multiply-adds; the quad demod runs
+//     on those rows in registers (a group's first row against the row
+//     before it, the tile's first against the carried row);
+//   - LPF2 at its stride and the DC FIR take kRows outputs a thread the
+//     same way.  Every R is odd, so a warp's 32 windows at stride 1 start
+//     in 32 different banks.
+// Three producer barriers a tile (two without a DC stage).  Every FIR
+// keeps its history in front of its tile and reads [history | tile]
+// contiguously; the histories move to the front of their buffers as
+// float4, LPF1's after its reads, LPF2's and the DC's at the start of the
+// next tile.
 //
 // Shared memory for one lane at d = 2, chunk 1024 with the lucky7 taps
-// (157 / 57 / 637): the mixed input with LPF1's history 2 x 2204 floats,
-// LPF1's output 2 x 2048, the quad-demod output with LPF2's history 2104,
-// LPF2's output with the DC history 1660, two y3 slots 2 x 1088, the taps
-// 851, the clock's 129 x 8 bank 1032 and the arctangent table 257: about
-// 66 KB (Layout below), within the 227 KB a block can have.  The nan
-// fixture's taps (589 / 289 / 3197, d = 1) take about 74 KB.
-//
-// Every FIR waits on a shared-memory load a tap for its sample and one for
-// its tap; register-blocking rows, and more than one lane a block where
-// lanes are many, are the next steps.
+// (157 / 57 / 637): the staged tile 2 x 2048 floats, [history | mixed
+// tile] 2 x 2220, [history | quad demod] 2120, [history | LPF2] 1672, two
+// y3 slots 2 x 1088, the taps 860, the Doppler rows 164, the clock's
+// 129 x 8 bank 1032 and the arctangent table 260: 67,296 bytes (Layout
+// below; ops/step.py:step_plan sums the same).  With 96 registers a
+// thread, two blocks share an SM where lanes outnumber SMs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,13 +68,31 @@
 #include "mm_chunk.cuh"
 #include "nco.cuh"
 #include "quad.cuh"
+#include "stage.cuh"
 
 namespace {
 
-constexpr int kProducers = 256;            // the front's threads: 8 warps
-constexpr int kThreads = kProducers + 32;  // and one warp whose first thread walks the clock
-constexpr int kClockThread = kProducers;
 constexpr int kMaxSharedBytes = 232448;  // what one block may have on an H100 (227 KB)
+constexpr int kPad = 12;                 // rows past LPF1's tile that discarded outputs read
+constexpr int kDopRows = 32;             // the lane's Doppler rows kept in shared memory, at most
+constexpr int kWalkerWarp = 3;           // the walker's warp, alone on its sub-partition
+
+// Eight producer warps on three sub-partitions (warp w issues from (s + w)
+// % 4), the walker in warp 3 and warp 7 idle on the fourth, so the
+// walker's dependent steps never queue for an issue slot behind its own
+// block's front.
+constexpr int kWarps = 10;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kProducers = 256;  // the threads of warps w % 4 != 3
+constexpr int kRows = 5;         // LPF2 and DC outputs a thread (odd)
+
+// LPF1 rows a thread, odd: a tile's rows over the producers, about once.
+__host__ __device__ constexpr int rows1(int d) { return d == 1 ? 5 : 9; }
+
+// The producer index of thread (warp w, lane), or -1.
+__device__ __forceinline__ int producer(int w, int lane) { return w % 4 == 3 ? -1 : (w - (w + 1) / 4) * 32 + lane; }
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
 struct StepParams {
   const float* x;
@@ -85,27 +123,29 @@ struct StepParams {
   float* suffix_out;
 };
 
-// One lane's shared memory, in floats; the host sizes the launch with it.
+// One lane's shared memory, in floats, every region a multiple of 4; the
+// host sizes the launch with it (ops/step.py:step_plan sums the same).
 struct Layout {
-  int bank, table, dop, tap1, tap2, tap3, xi, xq, y1i, y1q, qp, yq, y2, slots, slot_rows, total;
+  int bank, table, tap1, tap2, tap3, dop, raw, xi, xq, yq, y2, qp, slots, slot_rows, total;
 
-  __host__ __device__ Layout(int t1, int t2, int t3, int d, int chunk, int sfx, int dop_rows) {
+  __host__ __device__ Layout(int t1, int t2, int t3, int d, int chunk, int sfx) {
     const int r = d * chunk;
     int o = 0;
     bank = o, o += kMmBankSize;
-    table = o, o += kAtanTableSize;
-    dop = o, o += 5 * dop_rows;
-    tap1 = o, o += t1;
-    tap2 = o, o += t2;
-    tap3 = o, o += t3;
-    xi = o, o += t1 - 1 + r;  // [LPF1 history | mixed tile], I and Q
-    xq = o, o += t1 - 1 + r;
-    y1i = o, o += r;  // LPF1's output
-    y1q = o, o += r;
-    qp = o, o += 2;        // the carried LPF1 row before the tile
-    yq = o, o += t2 - 1 + r;  // [LPF2 history | quad-demod output]
-    y2 = o, o += t3 > 0 ? t3 - 1 + chunk : 0;  // [DC history | LPF2 output]
-    slot_rows = sfx + chunk;  // [the previous chunk's last sfx rows | y3 of the chunk]
+    table = o, o += round4(kAtanTableSize);
+    tap1 = o, o += round4(t1);
+    tap2 = o, o += round4(t2);
+    tap3 = o, o += round4(t3);
+    dop = o, o += round4(5 * kDopRows + 1);  // the lane's rows that meet the block, (5, kDopRows), and their count
+    raw = o, o += 2 * r;  // the staged tile, I rows then Q rows
+    // [the row before | LPF1 history | mixed tile | pad], I and Q; the
+    // history starts 4 floats in, so row -1 is addressable and stays aligned
+    xi = o, o += round4(4 + t1 - 1 + r + kPad);
+    xq = o, o += round4(4 + t1 - 1 + r + kPad);
+    yq = o, o += round4(t2 - 1 + r + kRows * d + 4);  // [LPF2 history | quad demod | pad]
+    y2 = o, o += t3 > 0 ? round4(t3 - 1 + chunk + kRows + 4) : 0;  // [DC history | LPF2 | pad]
+    qp = o, o += 4;  // the LPF1 row before the tile, I and Q, by tile parity
+    slot_rows = round4(sfx + chunk);  // [the previous chunk's last sfx rows | y3 of the chunk]
     slots = o, o += 2 * slot_rows;
     total = o;
   }
@@ -116,84 +156,165 @@ __device__ __forceinline__ void producers_sync() {
 }
 
 // buf[0, h) = buf[n, n + h): the last h rows of [history | n new rows]
-// become the history.  Strips of n rows, each after the last one's reads.
-// The caller syncs after it.
+// become the history, as float4 (buf 16-byte aligned, n a multiple of 4),
+// in strips of n rows, each after the last one's reads.  Up to 3 floats
+// past h are written too, rows the next tile writes before it reads them.
 __device__ __forceinline__ void shift_history(float* buf, int h, int n, int pt) {
   for (int base = 0; base < h; base += n) {
     if (base > 0) producers_sync();
-    const int m = min(n, h - base);
-    for (int i = pt; i < m; i += kProducers) buf[base + i] = buf[base + n + i];
+    const int m4 = (min(n, h - base) + 3) >> 2;
+    float4* dst = reinterpret_cast<float4*>(buf + base);
+    const float4* src = reinterpret_cast<const float4*>(buf + base + n);
+    for (int i = pt; i < m4; i += kProducers) dst[i] = src[i];
   }
+}
+
+// Stages tile g's raw rows of lane c that producer pt mixes: rows pt,
+// pt + kProducers, ... of the tile, I into raw[k] and Q into raw[r + k].
+__device__ __forceinline__ void stage_tile(const StepParams& p, float* raw, int g, int r, int pt) {
+  const int c = blockIdx.x, lanes = p.lanes;
+  asm volatile("" ::: "memory");  // after this thread's reads of the rows it restages
+  for (int k = pt; k < r; k += kProducers) {
+    const float* in = p.x + ((long long)g * r + k) * 2 * lanes + c;
+    cp_async4(raw + k, in);
+    cp_async4(raw + r + k, in + lanes);
+  }
+  cp_async_commit();
+}
+
+// The lane's Doppler rows that meet the block, in row order, into dop (all
+// zeros) as a (5, kDopRows, 1) table, and after it their count, or -1
+// where more than kDopRows meet it (the tiles then read the whole table).
+// Rows that meet no row of the block, and the zero rows, add +0 to every
+// phase, so the compact table gives the same bits.
+__device__ __forceinline__ void keep_block_rows(const StepParams& p, float* dop) {
+  const int c = blockIdx.x;
+  const long long plane = (long long)p.dop_rows * p.lanes;
+  const float last = (float)(p.block - 1);
+  int n = 0;
+  for (int s = 0; s < p.dop_rows && n >= 0; ++s) {
+    const float* t = p.dop + (long long)s * p.lanes + c;
+    if (!(t[0] <= last && t[plane] > 0.f)) continue;
+    if (n == kDopRows) {
+      n = -1;
+    } else {
+      for (int j = 0; j < 5; ++j) dop[j * kDopRows + n] = t[j * plane];
+      ++n;
+    }
+  }
+  dop[5 * kDopRows] = (float)n;
 }
 
 // The front end over tile g (input rows [g r, (g + 1) r)) of lane c, y3
 // into slot[sfx, sfx + chunk); pt is the producer's index.
-__device__ void front_tile(const StepParams& p, const Layout& L, float* sm, int g, int pt) {
-  const int c = blockIdx.x, lanes = p.lanes;
-  const int d = p.decim, chunk = p.chunk, r = d * chunk, sfx = p.sfx;
+template <int D>
+__device__ __forceinline__ void front_tile(const StepParams& p, const Layout& L, float* sm, int g,
+                                           int n_tiles, int pt) {
+  constexpr int R1 = rows1(D), R = kRows, P = kProducers;
+  const int c = blockIdx.x;
+  const int d = D == 0 ? p.decim : D, chunk = p.chunk, r = d * chunk, sfx = p.sfx;
   const int h1 = p.t1 - 1, h2 = p.t2 - 1, h3 = p.t3 > 0 ? p.t3 - 1 : 0;
-  float *xi = sm + L.xi, *xq = sm + L.xq, *y1i = sm + L.y1i, *y1q = sm + L.y1q;
-  float *qp = sm + L.qp, *yq = sm + L.yq, *y2 = sm + L.y2;
+  float *raw = sm + L.raw, *xi = sm + L.xi + 4, *xq = sm + L.xq + 4, *yq = sm + L.yq, *y2 = sm + L.y2;
   float* slot = sm + L.slots + (g & 1) * L.slot_rows;
+  const float *tap1 = sm + L.tap1, *tap2 = sm + L.tap2, *tap3 = sm + L.tap3, *table = sm + L.table;
 
-  // the tile, mixed by the lane's Doppler rows at its rows of the block
-  for (int k = pt; k < r; k += kProducers) {
-    const long long row = (long long)g * r + k;
-    const float* in = p.x + row * 2 * lanes;
-    float i = in[c], q = in[lanes + c];
-    if (p.dop != nullptr) {
-      const float2 m = nco_mix_sample(sm + L.dop, p.dop_rows, 1, 0, (float)row, i, q);
-      i = m.x;
-      q = m.y;
+  // (1) the last tile's LPF2 and DC inputs become histories; this
+  // producer's rows of the staged tile, mixed by the Doppler rows that
+  // meet the tile, into [LPF1 history | tile]; the next tile staged into
+  // the same rows; the clock's window reaches back sfx rows into chunk g - 1
+  if (g > 0) {
+    shift_history(yq, h2, r, pt);
+    if (p.t3 > 0) shift_history(y2, h3, chunk, pt);
+  }
+  cp_async_wait_all();
+  if (p.dop != nullptr) {
+    const long long r0 = (long long)g * r;
+    // the compact table in shared memory (its unused rows zeros, active
+    // nowhere), or the whole one in device memory
+    const bool compact = sm[L.dop + 5 * kDopRows] >= 0.f;
+    const float* tab = compact ? sm + L.dop : p.dop;
+    const int s_rows = compact ? kDopRows : p.dop_rows, lanes = compact ? 1 : p.lanes, col = compact ? 0 : c;
+    NcoKept kept;
+    nco_keep_rows(tab, s_rows, lanes, col, (float)r0, (float)(r0 + r - 1), kept);
+    for (int k = pt; k < r; k += P) {
+      const float2 m = nco_mix_kept(tab, s_rows, lanes, kept, col, (float)(r0 + k), raw[k], raw[r + k]);
+      xi[h1 + k] = m.x;
+      xq[h1 + k] = m.y;
     }
-    xi[h1 + k] = i;
-    xq[h1 + k] = q;
+  } else {
+    for (int k = pt; k < r; k += P) {
+      xi[h1 + k] = raw[k];
+      xq[h1 + k] = raw[r + k];
+    }
   }
-  if (g > 0) {  // the clock's window reaches back sfx rows into chunk g - 1
+  if (g + 1 < n_tiles) stage_tile(p, raw, g + 1, r, pt);
+  if (g > 0) {
     const float* prev = sm + L.slots + ((g - 1) & 1) * L.slot_rows;
-    for (int k = pt; k < sfx; k += kProducers) slot[k] = prev[chunk + k];
+    for (int k = pt; k < sfx; k += P) slot[k] = prev[chunk + k];
   }
   producers_sync();
 
-  const float* tap1 = sm + L.tap1;
-  for (int k = pt; k < r; k += kProducers) {
-    y1i[k] = fir_dot(tap1, 0, p.t1, xi + k, 1, 0.f);
-    y1q[k] = fir_dot(tap1, 0, p.t1, xq + k, 1, 0.f);
+  // (2) LPF1 on I and Q, rows [s, s + R1] of each group, s = grp R1 - 1,
+  // and the quad demod of rows [s + 1, s + R1] in registers; group 0's
+  // row before is the carried one
+  const float* qp_in = sm + L.qp + 2 * (g & 1);
+  float* qp_out = sm + L.qp + 2 * ((g + 1) & 1);
+  for (int grp = pt; grp * R1 < r; grp += P) {
+    const int s = grp * R1 - 1;
+    float acc[2][R1 + 1];
+    fir_block<R1 + 1, 1, 2>(tap1, p.t1, 1, [&](int m, int ch) { return (ch == 0 ? xi : xq)[s + m]; }, acc);
+    if (grp == 0) {
+      acc[0][0] = qp_in[0];
+      acc[1][0] = qp_in[1];
+    }
+#pragma unroll
+    for (int u = 1; u <= R1; ++u) {
+      const int k = s + u;
+      if (k < r) {
+        yq[h2 + k] = quad_demod_sample(acc[0][u], acc[1][u], acc[0][u - 1], acc[1][u - 1], table, p.quad_gain);
+      }
+      if (k == r - 1) {  // the next tile's row before
+        qp_out[0] = acc[0][u];
+        qp_out[1] = acc[1][u];
+      }
+    }
   }
   producers_sync();
 
-  const float* table = sm + L.table;
-  for (int k = pt; k < r; k += kProducers) {
-    const float si = k == 0 ? qp[0] : y1i[k - 1];
-    const float sq = k == 0 ? qp[1] : y1q[k - 1];
-    yq[h2 + k] = quad_demod_sample(y1i[k], y1q[k], si, sq, table, p.quad_gain);
-  }
-  shift_history(xi, h1, r, pt);  // LPF1's reads are done
+  // (3) LPF1's history for the next tile; LPF2 at its stride into [DC
+  // history | tile] (straight into the slot without a DC stage)
+  shift_history(xi, h1, r, pt);
   shift_history(xq, h1, r, pt);
+  float* out2 = p.t3 > 0 ? y2 + h3 : slot + sfx;
+  for (int grp = pt; grp * R < chunk; grp += P) {
+    const int m0 = grp * R;
+    float acc[1][R];
+    fir_block<R, D, 1>(tap2, p.t2, d, [&](int m, int) { return yq[m0 * d + m]; }, acc);
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      if (m0 + u < chunk) out2[m0 + u] = acc[0][u];
+    }
+  }
+  if (p.t3 == 0) return;
   producers_sync();
 
-  const float* tap2 = sm + L.tap2;
-  float* y2_out = p.t3 > 0 ? y2 + h3 : slot + sfx;
-  for (int k = pt; k < chunk; k += kProducers) y2_out[k] = fir_dot(tap2, 0, p.t2, yq + k * d, 1, 0.f);
-  if (pt == 0) {  // the next tile's quad demod starts from this tile's last LPF1 row
-    qp[0] = y1i[r - 1];
-    qp[1] = y1q[r - 1];
-  }
-  producers_sync();
-  shift_history(yq, h2, r, pt);
-  if (p.t3 > 0) {
-    const float* tap3 = sm + L.tap3;
-    for (int k = pt; k < chunk; k += kProducers) slot[sfx + k] = fir_dot(tap3, 0, p.t3, y2 + k, 1, 0.f);
-    producers_sync();
-    shift_history(y2, h3, chunk, pt);
+  // (4) the DC blocker's FIR into the slot
+  for (int grp = pt; grp * R < chunk; grp += P) {
+    const int m0 = grp * R;
+    float acc[1][R];
+    fir_block<R, 1, 1>(tap3, p.t3, 1, [&](int m, int) { return y2[m0 + m]; }, acc);
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      if (m0 + u < chunk) slot[sfx + m0 + u] = acc[0][u];
+    }
   }
 }
 
 // The clock over chunk t of lane c from the slot that holds its work
 // buffer [the previous chunk's last sfx rows | the chunk], walked as B2
 // walks it (mm_chunk.cuh), the read position s.ii in the slot's rows.
-__device__ void clock_chunk(const StepParams& p, const float* bank, const float* slot, int t,
-                            MmLane& s) {
+__device__ __forceinline__ void clock_chunk(const StepParams& p, const float* bank, const float* slot, int t,
+                                            MmLane& s) {
   const int c = blockIdx.x, lanes = p.lanes, k_max = p.k_max;
   float* outs = p.outs + (long long)t * k_max * lanes + c;
   const int cnt = mm_chunk(bank, p.mm, s, slot, p.sfx + p.chunk, p.sfx, k_max, outs, lanes);
@@ -201,23 +322,31 @@ __device__ void clock_chunk(const StepParams& p, const float* bank, const float*
   for (int k = cnt; k < k_max; ++k) outs[(long long)k * lanes] = 0.f;
 }
 
-__global__ void __launch_bounds__(kThreads) fused_step_kernel(const StepParams p) {
-  extern __shared__ float sm[];
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) fused_step_kernel(const StepParams p) {
+  extern __shared__ float4 step_sm4[];
+  float* sm = reinterpret_cast<float*>(step_sm4);
   const int c = blockIdx.x, lanes = p.lanes, tid = threadIdx.x;
+  const int pt = producer(tid / 32, tid % 32);
+  const bool walker = tid == 32 * kWalkerWarp;
   const int chunk = p.chunk, sfx = p.sfx, r = p.decim * chunk;
   const int h1 = p.t1 - 1, h2 = p.t2 - 1, h3 = p.t3 > 0 ? p.t3 - 1 : 0;
-  const Layout L(p.t1, p.t2, p.t3, p.decim, chunk, sfx, p.dop_rows);
+  const Layout L(p.t1, p.t2, p.t3, p.decim, chunk, sfx);
   const int n_tiles = p.block / r;
 
-  // constants, the lane's Doppler rows and the carried state in
+  // every float defined (discarded outputs read the pads), then tile 0 in
+  // flight while the constants and the carried state come in
+  for (int j = tid; j < L.total; j += kThreads) sm[j] = 0.f;
+  __syncthreads();
+  if (pt >= 0) stage_tile(p, sm + L.raw, 0, r, pt);
+  if (walker && p.dop != nullptr) keep_block_rows(p, sm + L.dop);
   for (int j = tid; j < kAtanTableSize; j += kThreads) sm[L.table + j] = p.atan_table[j];
   for (int j = tid; j < p.t1; j += kThreads) sm[L.tap1 + j] = p.rev1[j];
   for (int j = tid; j < p.t2; j += kThreads) sm[L.tap2 + j] = p.rev2[j];
   for (int j = tid; j < p.t3; j += kThreads) sm[L.tap3 + j] = p.rev_dc[j];
-  for (int j = tid; j < 5 * p.dop_rows; j += kThreads) sm[L.dop + j] = p.dop[(long long)j * lanes + c];
   for (int k = tid; k < h1; k += kThreads) {
-    sm[L.xi + k] = p.lpf1_hist[(long long)k * 2 * lanes + c];
-    sm[L.xq + k] = p.lpf1_hist[(long long)k * 2 * lanes + lanes + c];
+    sm[L.xi + 4 + k] = p.lpf1_hist[(long long)k * 2 * lanes + c];
+    sm[L.xq + 4 + k] = p.lpf1_hist[(long long)k * 2 * lanes + lanes + c];
   }
   for (int k = tid; k < h2; k += kThreads) sm[L.yq + k] = p.lpf2_hist[(long long)k * lanes + c];
   for (int k = tid; k < h3; k += kThreads) sm[L.y2 + k] = p.dc_hist[(long long)k * lanes + c];
@@ -231,16 +360,21 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(const StepParams p
   // the read position in chunk 0's slot [suffix | chunk 0]
   MmLane s{p.omega[c], p.mu[c], p.last[c], (long long)sfx - p.resid[c]};
   for (int g = 0; g <= n_tiles; ++g) {
-    if (tid < kProducers) {
-      if (g < n_tiles) front_tile(p, L, sm, g, tid);
-    } else if (tid == kClockThread && g > 0) {
+    if (pt >= 0) {
+      if (g < n_tiles) {
+        front_tile<D>(p, L, sm, g, n_tiles, pt);
+      } else {  // the last tile's LPF2 and DC inputs become the histories
+        shift_history(sm + L.yq, h2, r, pt);
+        if (p.t3 > 0) shift_history(sm + L.y2, h3, chunk, pt);
+      }
+    } else if (walker && g > 0) {
       clock_chunk(p, sm + L.bank, sm + L.slots + ((g - 1) & 1) * L.slot_rows, g - 1, s);
     }
     __syncthreads();
   }
 
   // the clock state and the front's histories out
-  if (tid == kClockThread) {
+  if (walker) {
     p.omega_out[c] = s.omega;
     p.mu_out[c] = s.mu;
     p.last_out[c] = s.last;
@@ -249,14 +383,15 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(const StepParams p
   const float* last_slot = sm + L.slots + ((n_tiles - 1) & 1) * L.slot_rows;
   for (int k = tid; k < sfx; k += kThreads) p.suffix_out[(long long)k * lanes + c] = last_slot[chunk + k];
   for (int k = tid; k < h1; k += kThreads) {
-    p.lpf1_out[(long long)k * 2 * lanes + c] = sm[L.xi + k];
-    p.lpf1_out[(long long)k * 2 * lanes + lanes + c] = sm[L.xq + k];
+    p.lpf1_out[(long long)k * 2 * lanes + c] = sm[L.xi + 4 + k];
+    p.lpf1_out[(long long)k * 2 * lanes + lanes + c] = sm[L.xq + 4 + k];
   }
   for (int k = tid; k < h2; k += kThreads) p.lpf2_out[(long long)k * lanes + c] = sm[L.yq + k];
   for (int k = tid; k < h3; k += kThreads) p.dc_out[(long long)k * lanes + c] = sm[L.y2 + k];
   if (tid == 0) {
-    p.quad_out[c] = sm[L.qp];
-    p.quad_out[lanes + c] = sm[L.qp + 1];
+    const float* qp = sm + L.qp + 2 * (n_tiles & 1);
+    p.quad_out[c] = qp[0];
+    p.quad_out[lanes + c] = qp[1];
   }
 }
 
@@ -267,9 +402,8 @@ extern "C" const char* cuda_error_string(int err) {
 }
 
 // Bytes of shared memory one block takes at these sizes.
-extern "C" int step_shared_bytes(int t1, int t2, int t3, int decim, int chunk, int sfx,
-                                 int dop_rows) {
-  return Layout(t1, t2, t3, decim, chunk, sfx, dop_rows).total * (int)sizeof(float);
+extern "C" int step_shared_bytes(int t1, int t2, int t3, int decim, int chunk, int sfx) {
+  return Layout(t1, t2, t3, decim, chunk, sfx).total * (int)sizeof(float);
 }
 
 // One full block, front and clock.  x is (block, 2C) with block a multiple
@@ -293,13 +427,13 @@ extern "C" int step_forward(const float* x, int block, int lanes, const float* d
                             float* mu_out, float* last_out, int* resid_out, float* suffix_out,
                             void* stream_handle) {
   if (dop == nullptr) dop_rows = 0;
-  const int bytes = step_shared_bytes(t1, t2, t3, decim, chunk, sfx, dop_rows);
-  if (bytes > kMaxSharedBytes || lanes < 1 || chunk < sfx || block % (decim * chunk) != 0 ||
-      block < decim * chunk) {
+  const int bytes = step_shared_bytes(t1, t2, t3, decim, chunk, sfx);
+  if (bytes > kMaxSharedBytes || lanes < 1 || decim < 1 || t1 < 1 || t2 < 1 || t3 < 0 || chunk % 8 != 0 ||
+      chunk < sfx || block % (decim * chunk) != 0 || block < decim * chunk) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(fused_step_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  auto kernel = decim == 1 ? fused_step_kernel<1> : decim == 2 ? fused_step_kernel<2> : fused_step_kernel<0>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const StepParams p{x, block, lanes, dop, dop_rows,
                      lpf1_hist, rev1, t1, quad_prev, quad_gain, atan_table,
@@ -308,6 +442,6 @@ extern "C" int step_forward(const float* x, int block, int lanes, const float* d
                      MmParams{omega_mid, omega_lim, gain_omega, gain_mu},
                      outs, counts, lpf1_out, quad_out, lpf2_out, dc_out,
                      omega_out, mu_out, last_out, resid_out, suffix_out};
-  fused_step_kernel<<<lanes, kThreads, bytes, static_cast<cudaStream_t>(stream_handle)>>>(p);
+  kernel<<<lanes, kThreads, bytes, static_cast<cudaStream_t>(stream_handle)>>>(p);
   return cudaGetLastError();
 }

@@ -60,7 +60,7 @@ from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig, float_to_int8
 from sdrmodem_tpu_torch.ops._build import resolve_device
 from sdrmodem_tpu_torch.ops.clock import default_bank
 from sdrmodem_tpu_torch.ops.front import FrontTaps, banded_front, front_tile, fused_front
-from sdrmodem_tpu_torch.ops.step import DEFAULT_CHUNK, check_step, fused_step
+from sdrmodem_tpu_torch.ops.step import DEFAULT_CHUNK, check_step, fused_step, step_available
 
 LAYOUTS = ("cm", "tm", "fanout")
 FRONTS = {"fused": fused_front, "banded": banded_front}
@@ -414,16 +414,18 @@ class DemodPipeline:
         return front_tile(len(self._t1), len(self._t2), self.config.decimation) is not None
 
     def fused_step_available(self, channels: int, chunk: int = DEFAULT_CHUNK) -> bool:
-        """Whether ``front="step"`` (B7) takes this block: whole clock
-        chunks, ``block % (d * chunk) == 0``, and a chunk that holds the
-        carried suffix.  Any number of channels: the JAX kernel's one
-        128-lane register of channels is the TPU's, not the port's."""
-        sfx = suffix_cap_for(self._clockp["omega"])
-        try:
-            check_step(self.block, self.config.decimation, chunk, sfx)
-        except ValueError:
+        """Whether ``front="step"`` runs B7 on this block: the float32 path
+        with the LUT arctangent, whole clock chunks, ``block % (d * chunk)
+        == 0``, a chunk that holds the carried suffix, and a layout within
+        one block's shared memory (``ops/step.py:step_plan``).  Any number
+        of channels: the JAX kernel's one 128-lane register of channels is
+        the TPU's, not the port's.  It answers on any device, from the
+        shapes alone."""
+        if self.exact or not is_lut_mode(self.use_atan_lut) or int(channels) < 1:
             return False
-        return int(channels) >= 1
+        t3 = len(self._tdc) if self._tdc is not None else 0
+        return step_available(self.block, len(self._t1), len(self._t2), t3, self.config.decimation,
+                              chunk, suffix_cap_for(self._clockp["omega"]))
 
     def _step_fused_impl(self, state: DemodStateFull, x_tm, dop, chunk: int = DEFAULT_CHUNK):
         """One block through the fused front+clock kernel (``ops/step.py``):
@@ -483,16 +485,20 @@ class DemodPipeline:
         changing them unless a stride runs back past a chunk's first row
         (each chunk reads only its own rows) or a chunk's K slots fill.
         As in the JAX package, "step" with ``clock_backend="scan"`` runs
-        "fused" (the step's clock is the chunked kernel).  "step" needs a
-        block of whole chunks, ``block % (d * chunk) == 0``, and raises
-        ``ValueError`` otherwise: the JAX package then takes the fused
-        front by itself, the port does not hide the kernel.  These are
-        arguments, and no environment variable is read.  "fused" takes the
+        "fused" (the step's clock is the chunked kernel), and so does
+        "step" where ``fused_step_available(1, chunk)`` is False: a block
+        that is not whole chunks, or filters whose layout passes one
+        block's shared memory.  A ``chunk`` that B2 cannot take (not a
+        multiple of 8, or shorter than the carried suffix) raises
+        ``ValueError``.  These are arguments, and no environment variable
+        is read.  "fused" takes the
         banded front where ``fused_front_available()`` is False: filters
         too long for B1's shared-memory layout (LPF1 past ~690 taps, e.g.
         288 kHz at 9600 Bd), as the JAX package takes it where B1 has no
-        TPU tile.  The choice is made here, once, from the taps; both
-        routes give the same bits.
+        TPU tile.  Each choice is made here, once, from the shapes; the
+        launch counters show which route ran (``ops/step.py:launches``,
+        ``ops/front.py:fused_launches``, ``ops/clock.py:launches``), and
+        every route gives the same bits.
 
         With ``doppler=True`` the step takes ``dop = (starts, ends, adjs,
         ph0s)``, each an (S, C) float32 tensor on the pipeline's device with
@@ -512,8 +518,9 @@ class DemodPipeline:
         if front == "step" and clock_backend != "pallas":
             front = "fused"  # the fused step is the chunked clock kernel
         if front == "step":
-            check_step(self.block, self.config.decimation, chunk,
-                       suffix_cap_for(self._clockp["omega"]))
+            check_step(chunk, suffix_cap_for(self._clockp["omega"]))
+            if not self.fused_step_available(1, chunk):
+                front = "fused"  # B7 does not take this block: the JAX package's route
         elif front not in FRONTS:
             raise ValueError(f"unknown front {front!r}")
         if layout not in LAYOUTS:

@@ -17,7 +17,11 @@ state {omega, mu, last, resid, suffix} with the next block's suffix.
 - ``fused_step`` launches ``csrc/step.cu`` for a CUDA tensor and runs
   ``fused_step_plain`` for a CPU tensor;
 - ``fused_step_plain`` is ``fused_front_plain`` followed by
-  ``clock_mm_chunked_plain`` in chunks of ``chunk``.
+  ``clock_mm_chunked_plain`` in chunks of ``chunk``;
+- ``step_plan`` is the kernel's shared memory a block, from the shapes
+  alone, and ``step_available`` whether the kernel takes a block: the
+  pipeline's ``front="step"`` asks it when the step is built and takes
+  the fused front and B2 where it is False, as the JAX package does.
 
 The kernel gives the bits of the fused front (B1) followed by the chunked
 clock (B2) at the same ``chunk``: the same device functions in the same
@@ -47,6 +51,13 @@ from sdrmodem_tpu_torch.ops.front import FrontTaps, _dop_table, check_dop, fused
 
 DEFAULT_CHUNK = 1024  # decimated rows a clock chunk (pallas_step.py:68)
 MAX_SHARED_BYTES = 232448  # shared memory one block may have on an H100 (227 KB)
+# csrc/step.cu's Layout: the clock's bank, the arctangent table, the pad
+# rows past LPF1's tile and the lane's Doppler rows kept in shared memory
+MM_BANK_FLOATS = (NSTEPS + 1) * NTAPS
+ATAN_TABLE = 257
+PAD_ROWS = 12
+ROWS = 5  # LPF2 and DC outputs a thread
+DOP_ROWS = 32
 
 launches = 0  # kernels launched by fused_step; a run resets and reads it
 
@@ -68,20 +79,47 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P,  # omega', mu', last', resid', suffix'
         _P,  # stream
     ],
-    "step_shared_bytes": [_I, _I, _I, _I, _I, _I, _I],
+    "step_shared_bytes": [_I, _I, _I, _I, _I, _I],
 }
 
 
-def check_step(block: int, d: int, chunk: int, sfx: int) -> None:
-    """Raise unless the block is a whole number (>= 1) of tiles of d *
-    chunk rows and the chunk holds the carried suffix, as B2 needs."""
+def check_step(chunk: int, sfx: int, block: int | None = None, d: int = 1) -> None:
+    """Raise ``ValueError`` unless the chunk is one B2 takes (a multiple of
+    8 that holds the carried suffix) and, given a block, the block is a
+    whole number (>= 1) of tiles of d * chunk rows."""
     if chunk % 8 or chunk < sfx:
         raise ValueError(f"fused step: chunk {chunk} must be a multiple of 8 and >= {sfx}")
-    if block < d * chunk or block % (d * chunk):
+    if block is not None and (block < d * chunk or block % (d * chunk)):
         raise ValueError(
             f"fused step: block {block} must hold a whole number of chunks "
             f"(block % (d * chunk) == 0 with d {d}, chunk {chunk})"
         )
+
+
+def step_plan(t1: int, t2: int, t3: int, d: int, chunk: int, sfx: int) -> int:
+    """Bytes of shared memory one block of ``csrc/step.cu`` takes: its
+    ``Layout``, every region rounded up to 4 floats.  t3 = 0 without a DC
+    stage.  The lane's Doppler rows take a fixed region (at most
+    ``DOP_ROWS`` of them; past that the kernel reads the table in device
+    memory), so the table's size adds nothing."""
+    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    r = d * chunk
+    floats = MM_BANK_FLOATS + r4(ATAN_TABLE) + r4(t1) + r4(t2) + r4(t3)
+    floats += r4(5 * DOP_ROWS + 1)  # the lane's Doppler rows that meet the block, and their count
+    floats += 2 * r  # the staged tile
+    floats += 2 * r4(4 + t1 - 1 + r + PAD_ROWS)  # [row before | LPF1 history | tile | pad], I and Q
+    floats += r4(t2 - 1 + r + ROWS * d + 4)  # [LPF2 history | quad demod | pad]
+    floats += r4(t3 - 1 + chunk + ROWS + 4) if t3 else 0  # [DC history | LPF2 | pad]
+    floats += 4 + 2 * r4(sfx + chunk)  # the carried LPF1 row by parity; two y3 slots
+    return 4 * floats
+
+
+def step_available(block: int, t1: int, t2: int, t3: int, d: int, chunk: int, sfx: int) -> bool:
+    """Whether the kernel takes this block, answered without raising: the
+    conditions of ``check_step``, and a layout within one block's shared
+    memory (``step_plan``)."""
+    return (chunk % 8 == 0 and chunk >= sfx and block >= d * chunk and block % (d * chunk) == 0
+            and step_plan(t1, t2, t3, d, chunk, sfx) <= MAX_SHARED_BYTES)
 
 
 def _clock_consts(omega_mid, omega_relative_limit, gain_omega, gain_mu):
@@ -103,7 +141,7 @@ def fused_step_plain(
     clock over its y3 in chunks of ``chunk``.  Arguments and results as
     ``fused_step``."""
     sfx = suffix.shape[0]
-    check_step(x.shape[0], taps.d, chunk, sfx)
+    check_step(chunk, sfx, x.shape[0], taps.d)
     y3, front = fused_front_plain(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps, dop)
     outs, counts, (om, m, la, rs) = clock_mm_chunked_plain(
         y3, suffix, omega, mu, last, resid, bank, chunk=chunk, num_symbols=k_slots(num_symbols),
@@ -156,7 +194,7 @@ def _step_cuda(
     t3 = 0 if taps.rev_dc is None else taps.rev_dc.numel()
     if c2 % 2 or c < 1:
         raise ValueError(f"step kernel: x {tuple(x.shape)} needs 2C lanes, C >= 1")
-    check_step(b, d, chunk, sfx)
+    check_step(chunk, sfx, b, d)
     _check("x", x, (b, c2), dev)
     _check("lpf1_hist", lpf1_hist, (t1 - 1, c2), dev)
     _check("quad_prev", quad_prev, (1, c2), dev)
@@ -177,13 +215,13 @@ def _step_cuda(
         check_dop(dop, b, c, dev)
         tab = _dop_table(dop)
     s_rows = tab.shape[1] if tab is not None else 0
-    lib = _build.load("step", _SIGNATURES)
-    need = lib.step_shared_bytes(t1, t2, t3, d, chunk, sfx, s_rows)
+    need = step_plan(t1, t2, t3, d, chunk, sfx)
     if need > MAX_SHARED_BYTES:
         raise ValueError(
             f"step kernel: {need} bytes of shared memory a lane at chunk {chunk} with these "
             f"taps, above the {MAX_SHARED_BYTES} a block can have; take a smaller chunk"
         )
+    lib = _build.load("step", _SIGNATURES)
     k = k_slots(num_symbols)
     n_chunks = b // (d * chunk)
     f32, i32 = torch.float32, torch.int32

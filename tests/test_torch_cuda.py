@@ -36,7 +36,7 @@ from sdrmodem_tpu_torch.dsp.clock_recovery import chunk_plan, clock_mm_batched_f
 from sdrmodem_tpu_torch.dsp.doppler import Doppler
 from sdrmodem_tpu_torch.dsp.gfsk_mod import GfskModConfig, GfskModulator
 from sdrmodem_tpu_torch.dsp.streaming import StreamingGfskMod
-from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig, float_to_int8
 from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline, DemodStateFull
 from sdrmodem_tpu_torch.ops import clock as clock_ops
 from sdrmodem_tpu_torch.ops import fir as fir_ops
@@ -841,3 +841,143 @@ def test_step_kernel_backward_strides(cuda):
             omega=fin["omega"], mu=fin["mu"], last_sample=fin["last"], resid=fin["resid"],
             suffix=fin["suffix"]))
         ck = st.clock
+
+
+def _many_rows_tables(block, c, device):
+    """(40, C) Doppler tables: lane 0 has 40 one-sample rows from row 0,
+    more than a thread keeps for a tile and more than the kernel keeps for
+    the block (it reads the whole table); lane 1 eight rows covering the
+    block edge to edge; lane 2 six one-sample rows in its second tile (kept
+    for the block, more than kept for the tile); the rest none."""
+    tables = [np.zeros((40, c), np.float32) for _ in range(4)]
+    tables[0][:, 0] = np.arange(40)
+    tables[1][:, 0] = np.arange(1, 41)
+    tables[2][:, 0] = 0.2
+    tables[3][:, 0] = np.linspace(-3, 3, 40)
+    if c > 2:
+        cuts = np.linspace(0, block, 9).astype(np.float32)
+        tables[0][:8, 1], tables[1][:8, 1] = cuts[:-1], cuts[1:]
+        tables[2][:8, 1] = np.linspace(-0.01, 0.01, 8)
+        tables[3][:8, 1] = 0.5
+        tables[0][:6, 2] = block // 4 + np.arange(6)
+        tables[1][:6, 2] = block // 4 + np.arange(1, 7)
+        tables[2][:6, 2] = 0.3
+        tables[3][:6, 2] = 1.0
+    return doppler_tables_from_numpy(tables, c, device=device)
+
+
+def _b1_b2(pipe, x, st, dop, chunk, k):
+    """B1 (the banded front where B1 has no layout) followed by B2 at B7's
+    chunk and K slots: (outs, counts, front tails, (omega, mu, last,
+    resid), y3)."""
+    p = pipe.config.clock_params()
+    front = front_ops.fused_front if pipe.fused_front_available() else front_ops.banded_front
+    y3, tails = front(x, *st[:4], pipe.front_taps, dop)
+    ck = st.clock
+    outs, counts, fin = clock_ops.clock_mm_chunked(
+        y3, ck.suffix, ck.omega, ck.mu, ck.last_sample, ck.resid, pipe.bank, chunk=chunk, num_symbols=k,
+        omega_mid=p["omega"], omega_lim=clock_ops.omega_limit(p["omega"], p["omega_relative_limit"]),
+        gain_omega=p["gain_omega"], gain_mu=p["gain_mu"])
+    return outs, counts, tails, fin, y3
+
+
+# B7's edges: (config, lanes, block, input ("noise", "nan": _nan_blocks), Doppler)
+STEP_EDGE_CASES = {
+    "lanes_1": (CONFIGS["lucky7"], 1, 8192, "noise", False),
+    "lanes_33": (CONFIGS["lucky7"], 33, 8192, "noise", False),
+    "lanes_130": (CONFIGS["nusat"], 130, 4096, "nan", False),
+    "lanes_140": (CONFIGS["lucky7"], 140, 4096, "noise", False),  # past the SMs: two blocks an SM
+    "one_tile": (CONFIGS["lucky7"], 4, 2048, "noise", False),
+    "nan_taps": (NAN_CONFIG, 5, 8192, "nan", False),
+    "long_taps": (LONG_TAPS, 5, 8192, "nan", False),
+    "many_doppler_rows": (CONFIGS["lucky7"], 4, 8192, "noise", True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STEP_EDGE_CASES))
+def test_step_kernel_edges(cuda, name):
+    """B7 at chunk 1024 against B1 followed by B2 (the banded front where
+    B1 has no layout), two blocks with the kernel's state carried: bit for
+    bit (NaN where NaN), outputs, tails and clock state.  Against its plain
+    version: outputs, counts and the clock state bit for bit, the tails
+    within the module's bounds; with Doppler, whose plain cos and sin are
+    another library's, the counts equal and the int8 symbols within 1 LSB."""
+    cfg, c, block, kind, with_dop = STEP_EDGE_CASES[name]
+    pipe = DemodPipeline(FskDemodConfig(*cfg), block, device=cuda)
+    assert pipe.fused_step_available(c)
+    p = pipe.config.clock_params()
+    chunk, k = step_ops.DEFAULT_CHUNK, 304
+    kw = dict(chunk=chunk, omega_mid=p["omega"], omega_relative_limit=p["omega_relative_limit"],
+              gain_omega=p["gain_omega"], gain_mu=p["gain_mu"], num_symbols=k)
+    rng = np.random.default_rng(11)
+    xs = (_nan_blocks(block, c, 2, 5) if kind == "nan"
+          else [rng.standard_normal((block, 2 * c)).astype(np.float32) for _ in range(2)])
+    st = pipe.init_full_state(c)
+    for x in xs:
+        x = torch.from_numpy(x).to(cuda)
+        dop = _many_rows_tables(block, c, cuda) if with_dop else None
+        ck = st.clock
+        args = (x, *st[:4], ck.suffix, ck.omega, ck.mu, ck.last_sample, ck.resid, pipe.front_taps, pipe.bank)
+        n0 = step_ops.launches
+        outs, counts, _, front, fin = step_ops.fused_step(*args, dop=dop, **kw)
+        assert step_ops.launches == n0 + 1
+        o_p, c_p, _, f_p, fin_p = step_ops.fused_step_plain(*args, dop=dop, **kw)
+        o2, c2, f2, fin2, y3 = _b1_b2(pipe, x, st, dop, chunk, k)
+        torch.cuda.synchronize()
+        assert torch.equal(outs, o2) and torch.equal(counts, c2)
+        assert all(_same_bits(a, b) for a, b in zip(front, f2))
+        assert all(_same_bits(fin[key], b) for key, b in zip(("omega", "mu", "last"), fin2[:3]))
+        assert torch.equal(fin["resid"], fin2[3])
+        assert _same_bits(fin["suffix"], y3[y3.shape[0] - ck.suffix.shape[0]:])
+        if with_dop:
+            assert torch.equal(counts, c_p)
+            lsb = (float_to_int8(outs).int() - float_to_int8(o_p).int()).abs().max()
+            assert lsb <= 1
+        else:
+            assert torch.equal(outs, o_p) and torch.equal(counts, c_p)
+            assert all(_same_bits(fin[key], fin_p[key]) for key in ("omega", "mu", "last"))
+            assert torch.equal(fin["resid"], fin_p["resid"])
+            # the plain FIRs round each tap's sum through float64 (a tie can
+            # round twice): the tails within the module's bounds
+            assert _same_bits(front[0], f_p[0])
+            for key, a, b in (("quad_prev", front[1], f_p[1]), ("lpf2", front[2], f_p[2]),
+                              ("dc", front[3], f_p[3]), ("suffix", fin["suffix"], fin_p["suffix"])):
+                assert (a is None and b is None) or torch.allclose(a, b, rtol=0, atol=1e-4, equal_nan=True), key
+        assert int(counts.sum()) > 0.5 * c * block * cfg[1] / cfg[0]
+        st = DemodStateFull(*front, ck._replace(
+            omega=fin["omega"], mu=fin["mu"], last_sample=fin["last"], resid=fin["resid"],
+            suffix=fin["suffix"]))
+
+
+@pytest.mark.cuda
+def test_step_route_on_partial_chunks_launches_the_pair(cuda):
+    """front="step" on a block that is not whole chunks (1536 rows at d =
+    2) runs B1 and B2, never B7, and gives front="fused"'s bits."""
+    c, block = 4, 1536
+    pipe = DemodPipeline(FskDemodConfig(*CONFIGS["lucky7"]), block, device=cuda)
+    assert not pipe.fused_step_available(c)
+    step = pipe.make_batched_step_full("pallas", layout="tm", front="step")
+    pair = pipe.make_batched_step_full("pallas", layout="tm", front="fused")
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((block, 2 * c)).astype(np.float32)).to(cuda)
+    n0 = (step_ops.launches, front_ops.fused_launches, clock_ops.launches)
+    st_s, sym_s, cnt_s = step(pipe.init_full_state(c), x)
+    n1 = (step_ops.launches, front_ops.fused_launches, clock_ops.launches)
+    assert n1[0] == n0[0] and n1[1] == n0[1] + 2 and n1[2] == n0[2] + 1  # B1's two launches, B2's one
+    st_p, sym_p, cnt_p = pair(pipe.init_full_state(c), x)
+    assert torch.equal(sym_s, sym_p) and torch.equal(cnt_s, cnt_p)
+    for a, b in zip((*st_s[:4], *st_s.clock), (*st_p[:4], *st_p.clock)):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+def test_step_plan_matches_kernel_layout(cuda):
+    """ops/step.py:step_plan against the kernel's own Layout sum."""
+    from sdrmodem_tpu_torch.ops import _build
+
+    lib = _build.load("step", step_ops._SIGNATURES)
+    for t1, t2, t3, d, chunk, sfx in ((157, 57, 637, 2, 1024, 64), (185, 231, 613, 1, 1024, 64),
+                                      (589, 289, 3197, 1, 1024, 64), (707, 347, 1917, 2, 1024, 64),
+                                      (157, 57, 0, 2, 256, 64), (4819, 2891, 12797, 2, 1024, 112),
+                                      (33, 9, 5, 3, 64, 40)):
+        assert lib.step_shared_bytes(t1, t2, t3, d, chunk, sfx) == step_ops.step_plan(t1, t2, t3, d, chunk, sfx)

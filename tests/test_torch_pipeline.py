@@ -250,14 +250,15 @@ def test_server_call_runs_on_the_port():
         assert torch.equal(sym[1], sym_p[1]) and torch.equal(cnt[1], cnt_p[1])
         assert not torch.equal(sym[0], sym[1]) and not torch.equal(sym[0], sym[2])
     # front="step" (B7) takes blocks of whole clock chunks, d * 1024 = 2048
-    # rows here; with the scan clock it runs "fused", as in the JAX package
+    # rows here; elsewhere, and with the scan clock, it runs "fused", as in
+    # the JAX package
     uneven = DemodPipeline(FskDemodConfig(*LUCKY7), 3072, device="cpu")
-    with pytest.raises(ValueError, match="whole number of chunks"):
-        uneven.make_batched_step_full("pallas", front="step")
+    assert not uneven.fused_step_available(c)
     x3 = torch.from_numpy(np.random.default_rng(10).standard_normal((2, 3072)).astype(np.float32))
-    runs = [uneven.make_batched_step_full("scan", layout="fanout", front=f)(uneven.init_full_state(c), x3)
-            for f in ("step", "fused")]
-    assert torch.equal(runs[0][1], runs[1][1]) and torch.equal(runs[0][2], runs[1][2])
+    for backend in ("pallas", "scan"):
+        runs = [uneven.make_batched_step_full(backend, layout="fanout", front=f)(uneven.init_full_state(c), x3)
+                for f in ("step", "fused")]
+        assert torch.equal(runs[0][1], runs[1][1]) and torch.equal(runs[0][2], runs[1][2])
     with pytest.raises(ValueError, match="unknown front"):
         pipe.make_batched_step_full("pallas", front="xy")
     with pytest.raises(ValueError, match="ends"):

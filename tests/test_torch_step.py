@@ -53,6 +53,7 @@ from sdrmodem_tpu_torch.ops import step as step_ops
 from sdrmodem_tpu_torch.utils.convert import doppler_tables_from_numpy, full_state_from_numpy
 from sdrmodem_tpu_torch.utils.parity import GOLDEN_CASES, demod_capture, golden_report
 from tests.test_torch_fir import one_thread  # noqa: F401 (torch on one thread)
+from tests.test_torch_front import gfsk_lanes
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 LUCKY7 = (48000, 4800, 5000, 2, 2000, True)
@@ -133,8 +134,12 @@ def _hold_to_jax(state, sym, cnt, jstate, jsym, jcnt, c, *, dop, carried=True):
     assert sym.shape == jsym.shape and np.array_equal(cnt.numpy(), jcnt)
     assert np.abs(sym.numpy().astype(np.int32) - jsym.astype(np.int32)).max() <= LSB
     assert np.array_equal(state.clock.resid.numpy(), jstate.clock.resid[:c])
-    if not carried:
-        return
+    if carried:
+        _hold_state_to_jax(state, jstate, c, dop=dop)
+
+
+def _hold_state_to_jax(state, jstate, c, *, dop):
+    """The carried state's tolerances of the module's docstring."""
     np.testing.assert_allclose(state.clock.omega.numpy(), jstate.clock.omega[:c], rtol=0, atol=OMEGA_ATOL)
     np.testing.assert_allclose(state.clock.mu.numpy(), jstate.clock.mu[:c], rtol=0, atol=MU_ATOL)
     np.testing.assert_allclose(state.clock.suffix.numpy(), jstate.clock.suffix[:, :c], rtol=0,
@@ -274,12 +279,19 @@ def test_step_lucky7_golden(resources_dir):
 
 
 def test_step_wrapper_checks():
-    """The wrapper and the pipeline refuse what the kernel does not take."""
+    """The wrapper refuses what the kernel does not take; the pipeline's
+    front="step" takes the fused front and B2 on a block that is not whole
+    chunks (the same outputs and state as front="fused", bit for bit), and
+    refuses a chunk B2 cannot take."""
     pipe = DemodPipeline(FskDemodConfig(*LUCKY7), 1536, device="cpu")
     assert not pipe.fused_step_available(3) and pipe.fused_step_available(3, chunk=256)
     assert not pipe.fused_step_available(3, chunk=60)  # below the carried suffix of 64
-    with pytest.raises(ValueError, match="whole number of chunks"):
-        pipe.make_batched_step_full("pallas", front="step")
+    x = torch.from_numpy((np.random.default_rng(5).standard_normal((1536, 6)) * 0.3).astype(np.float32))
+    runs = [pipe.make_batched_step_full("pallas", layout="tm", front=f)(pipe.init_full_state(3), x)
+            for f in ("step", "fused")]
+    (sa, ya, ca), (sb, yb, cb) = runs
+    assert torch.equal(ya, yb) and torch.equal(ca, cb) and int(ca.sum()) > 3 * 100
+    _assert_same_state(sa, sb)
     with pytest.raises(ValueError, match="multiple of 8"):
         pipe.make_batched_step_full("pallas", front="step", chunk=252)
     state = pipe.init_full_state(2)
@@ -291,3 +303,113 @@ def test_step_wrapper_checks():
             pipe.bank, num_symbols=274, omega_mid=5.0, omega_relative_limit=0.01,
             gain_omega=0.157, gain_mu=0.0625,
         )
+
+
+def _lane_streams(sym, cnt):
+    """Each lane's symbols concatenated over the chunks, as numpy."""
+    return [np.concatenate([np.asarray(sym[lane, k, :n]) for k, n in enumerate(np.asarray(cnt[lane]).tolist())])
+            for lane in range(cnt.shape[0])]
+
+
+# C2: front="step" where B7 does not take the block.  (config, block, blocks,
+# GFSK input (fs, baud, deviation) or None for the lucky7 capture, whether
+# the carried state is held to the module's tolerances)
+ROUTE_CASES = {
+    # 1536 rows at d = 2: not whole chunks of 1024 decimated rows
+    "partial_chunks": (LUCKY7, 1536, 2, None, True),
+    # whole chunks, but LPF1 4819, LPF2 2891 and DC 12797 taps: B7's layout
+    # passes one block's shared memory (step_plan 242,912 bytes).  Held as
+    # tests/test_torch_front.py::test_long_tap_step_matches_jax holds long
+    # filters against JAX, on the outputs and resid: a quad gain of 64 turns
+    # the two sides' f32 ulps of a 4819-tap LPF1 into up to 1e-3 on the
+    # quad-demod tail
+    "past_shared_memory": ((240000, 1200, 600, 2, 200, True), 2048, 2, (240000, 1200, 600), False),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTE_CASES))
+def test_step_route_follows_jax_where_b7_does_not_take_the_block(name, monkeypatch):
+    """Where ``fused_step_available`` is False the port's front="step" is
+    built on the fused route (B1 or the banded front, then B2), as the JAX
+    package's front="step" takes its fused front there
+    (``sdrmodem_tpu/dsp/pipeline.py:643-650``): 3 lanes, two blocks with the
+    state carried, against JAX's front="step" on the same numpy input.
+    Count totals a lane equal, symbols within ±2 LSB, resid equal and,
+    where the case says so, the state within the module's tolerances."""
+    monkeypatch.setenv("SDRM_FIR_PRECISION", "highest")
+    cfg, block, n_blocks, gfsk, carried = ROUTE_CASES[name]
+    c = 3
+    pipe = DemodPipeline(FskDemodConfig(*cfg), block, device="cpu")
+    assert not pipe.fused_step_available(c)
+    if gfsk is None:
+        xs = [np.stack([x[:, :c], x[:, LANES : LANES + c]], axis=1).transpose(2, 1, 0).copy()
+              for x in _capture_blocks("lucky7.expected.cf32", block, n_blocks, LANES)]
+    else:
+        taps = pipe.front_taps
+        assert block % (cfg[3] * step_ops.DEFAULT_CHUNK) == 0
+        assert step_ops.step_plan(taps.rev1.numel(), taps.rev2.numel(), taps.rev_dc.numel(), cfg[3],
+                                  step_ops.DEFAULT_CHUNK, pipe.init_full_state(1).clock.suffix.shape[0]
+                                  ) > step_ops.MAX_SHARED_BYTES
+        x_all = gfsk_lanes(*gfsk, n_blocks * block, c, 13)
+        xs = [x_all[:, :, k * block : (k + 1) * block].copy() for k in range(n_blocks)]
+    step = pipe.make_batched_step_full("pallas", front="step")
+    fused = pipe.make_batched_step_full("pallas", front="fused")
+    jpipe = JaxPipeline(JaxConfig(*cfg), block, exact=False, use_atan_lut="free")
+    jstep = jpipe.make_batched_step_full("pallas", front="step", jit=False)
+    state, fstate, jstate = pipe.init_full_state(c), pipe.init_full_state(c), jpipe.init_full_state(c)
+    for x in xs:
+        state, sym, cnt = step(state, torch.from_numpy(x))
+        fstate, fsym, fcnt = fused(fstate, torch.from_numpy(x))
+        assert torch.equal(sym, fsym) and torch.equal(cnt, fcnt)  # the fused route, bit for bit
+        jstate, jsym, jcnt = jstep(jstate, jnp.asarray(x))
+        jsym, jcnt = np.asarray(jsym)[:c], np.asarray(jcnt)[:c]
+        assert np.array_equal(cnt.sum(1).numpy(), jcnt.sum(1))
+        for got, want in zip(_lane_streams(sym, cnt), _lane_streams(jsym, jcnt)):
+            assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= LSB
+        jnp_state = jax.tree.map(np.asarray, jstate)
+        assert np.array_equal(state.clock.resid.numpy(), jnp_state.clock.resid[:c])
+        if carried:
+            _hold_state_to_jax(state, jnp_state, c, dop=False)
+    _assert_same_state(state, fstate)
+    assert int(cnt.sum()) > 0.9 * c * block * cfg[1] / cfg[0]
+
+
+# (taps t1, t2, t3, d, sfx) -> csrc/step.cu's Layout summed by hand at
+# chunk 1024, in floats: the bank 1032, the table 260, the three tap
+# regions, the Doppler rows 5 x 32 + 1 -> 164, the staged tile 2 r,
+# [4 | LPF1 history | r | 12 pad] twice, [LPF2 history | r | 5 d + 4],
+# [DC history | 1024 | 9], qp 4, two slots of sfx + 1024; each region
+# rounded up to 4 floats
+PLAN_BY_HAND = {
+    "lucky7": ((157, 57, 637, 2, 64),
+               1032 + 260 + 160 + 60 + 640 + 164 + 4096 + 2 * 2220 + 2120 + 1672 + 4 + 2 * 1088),
+    "nusat": ((185, 231, 613, 1, 64),
+              1032 + 260 + 188 + 232 + 616 + 164 + 2048 + 2 * 1224 + 1264 + 1648 + 4 + 2 * 1088),
+    "nan": ((589, 289, 3197, 1, 64),
+            1032 + 260 + 592 + 292 + 3200 + 164 + 2048 + 2 * 1628 + 1324 + 4232 + 4 + 2 * 1088),
+    "long_taps": ((707, 347, 1917, 2, 64),
+                  1032 + 260 + 708 + 348 + 1920 + 164 + 4096 + 2 * 2772 + 2408 + 2952 + 4 + 2 * 1088),
+    "lucky7_nodc": ((157, 57, 0, 2, 64),
+                    1032 + 260 + 160 + 60 + 0 + 164 + 4096 + 2 * 2220 + 2120 + 0 + 4 + 2 * 1088),
+}
+
+
+@pytest.mark.parametrize("name", list(PLAN_BY_HAND))
+def test_step_plan_matches_layout_by_hand(name):
+    (t1, t2, t3, d, sfx), floats = PLAN_BY_HAND[name]
+    assert step_ops.step_plan(t1, t2, t3, d, step_ops.DEFAULT_CHUNK, sfx) == 4 * floats
+    assert 4 * floats <= step_ops.MAX_SHARED_BYTES
+
+
+def test_step_plan_matches_pipeline_taps():
+    """The hand sums' taps are the pipelines' own (lucky7, nusat, the nan
+    fixture's and the long filters), and each takes B7 at its default
+    chunk on a block of whole chunks."""
+    for name, cfg in (("lucky7", LUCKY7), ("nusat", NUSAT), ("nan", NAN),
+                      ("long_taps", (288000, 9600, 5000, 2, 2000, True)), ("lucky7_nodc", NODC)):
+        pipe = DemodPipeline(FskDemodConfig(*cfg), 4 * step_ops.DEFAULT_CHUNK, device="cpu")
+        t = pipe.front_taps
+        t3 = t.rev_dc.numel() if t.rev_dc is not None else 0
+        sfx = pipe.init_full_state(1).clock.suffix.shape[0]
+        assert PLAN_BY_HAND[name][0] == (t.rev1.numel(), t.rev2.numel(), t3, t.d, sfx)
+        assert pipe.fused_step_available(5)
