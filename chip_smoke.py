@@ -31,7 +31,13 @@ Phases (any failure exits non-zero, and no result line is printed):
              across a segment edge; the TX kernels,
              B5 at 2048 B and 32 KiB at I = 2 and 60 and B6 at 5 and 128
              streams x 2048 B, with a carried phase and history and a
-             ragged n_valid; B4 at 128 lanes x 65536 in both layouts (a NaN
+             ragged n_valid, then where their tiles, runs and launches
+             meet the data (n_valid at 0, on a tile and a run edge and
+             past the payload, one tile of rows and one either side, a
+             zero and a non-+-1 history, B6 at 1 and 33 lanes), each
+             call's launches as tx_plan gives them, and two identical
+             calls of each at full width, which must give the same bits;
+             B4 at 128 lanes x 65536 in both layouts (a NaN
              stretch, ragged n_valid and read starts), at its own slot size
              and at 64 rows a slot, and the float64 FIR at the exact
              streamer's shapes, bit for bit; B4 alone at 128, 512 and 1024
@@ -618,10 +624,81 @@ def check_tx(torch, dev):
                 phase_gap(got[2], ref[2]))
         log_err[f"tx {c} x 2048 B I={mod.interpolation}"] = e
         err["tx"] = max(err["tx"], e)
+    for name, e in check_tx_edges(torch, dev, rng).items():
+        log_err[name] = e
+        key = "tx" if name.startswith("tx ") else "tx_folded"
+        err[key] = max(err[key], e)
     log(f"[check] tx: max |kernel - plain| on I/Q and the phase {json.dumps(log_err)}; "
-        "B6's history exact")
+        "B6's history exact; two identical calls the same bits")
     need(max(err.values()) <= TX_ATOL, f"tx kernels differ from plain by {max(err.values())}")
     return err
+
+
+def tx_history(torch, rng, kind, shape, dev):
+    """A carried history: +-1, zeros (a stream's first call) or other floats."""
+    if kind == "zero":
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+    vals = rng.choice([-1.0, 1.0], shape) if kind == "pm1" else rng.uniform(-1.5, 1.5, shape)
+    return torch.from_numpy(vals.astype(np.float32)).to(dev)
+
+
+def check_tx_edges(torch, dev, rng):
+    """B5 and B6 where their tiles, runs and launches meet the data: n_valid
+    at 0, on a tile edge, on a run edge and past the payload; one tile of
+    rows and one either side; a zero and a non-+-1 history; 1 and 33 lanes;
+    each call's launches as tx_plan gives them; then two identical calls of
+    each at full width, which must give the same bits.  Returns the largest
+    error of each case against the plain version."""
+    from sdrmodem_tpu_torch.ops import tx as tx_ops
+
+    out = {}
+    mod = tx_mod(TX_FS[0], dev)
+    args = (mod.taps, mod.interpolation, mod.config.sensitivity)
+    tile = tx_ops.tx_plan(1, mod.interpolation, mod.k).tile
+    for rows, nv, kind in ((8 * 4096, 0, "pm1"), (8 * 4096, 3 * tile, "pm1"), (8 * 4096, 77 * 8, "zero"),
+                           (8 * 4096, 10**6, "other"), (tile, None, "zero"), (tile - 1, None, "other"),
+                           (tile + 1, None, "pm1"), (9 * tile + 8, 9 * tile - 1, "other")):
+        nrz = torch.from_numpy(rng.choice([-1.0, 1.0], rows).astype(np.float32)).to(dev)
+        x = nrz if rows % 8 else torch.from_numpy(np.packbits(nrz.cpu().numpy() > 0)).to(dev)
+        hist = tx_history(torch, rng, kind, mod.k - 1, dev)
+        before = tx_ops.folded_launches
+        iq, ph = tx_ops.gfsk_tx_folded_iq(x, *args, 3.0, hist, n_valid=nv)
+        launched = tx_ops.folded_launches - before
+        iq_p, ph_p = tx_ops.gfsk_tx_folded_iq_plain(x, *args, 3.0, hist, n_valid=nv)
+        torch.cuda.synchronize()
+        need(launched == tx_ops.tx_plan(rows, mod.interpolation, mod.k).launches,
+             f"tx_folded {rows} rows: {launched} launches")
+        need(0.0 <= ph.item() < 2 * np.pi, f"tx_folded {rows} rows: phase {ph.item()} outside [0, 2 pi)")
+        out[f"tx_folded {rows} rows n_valid={nv} {kind} history"] = max(
+            (iq - iq_p).abs().max().item(), phase_gap(ph, ph_p))
+    for c, rows, nv, kind in ((1, 4096, 4093, "pm1"), (33, 512, 0, "zero"), (33, 8000, 384, "other")):
+        nrz = torch.from_numpy(rng.choice([-1.0, 1.0], (rows, c)).astype(np.float32)).to(dev)
+        hist = tx_history(torch, rng, kind, (mod.k - 1, c), dev)
+        ph0 = torch.from_numpy(rng.uniform(0, 2 * np.pi, c)).to(dev)
+        before = tx_ops.batched_launches
+        got = tx_ops.gfsk_tx_call(nrz, *args, ph0, hist, n_valid=nv)
+        launched = tx_ops.batched_launches - before
+        ref = tx_ops.gfsk_tx_call_plain(nrz, *args, ph0, hist, n_valid=nv)
+        torch.cuda.synchronize()
+        need(launched == tx_ops.tx_plan(rows, mod.interpolation, mod.k, c).launches,
+             f"tx {c} lanes: {launched} launches")
+        need(torch.equal(got[3], ref[3]), f"tx {c} lanes x {rows} rows: exported history differs from plain")
+        out[f"tx {c} lanes x {rows} rows n_valid={nv} {kind} history"] = max(
+            (got[0] - ref[0]).abs().max().item(), (got[1] - ref[1]).abs().max().item(), phase_gap(got[2], ref[2]))
+    # the same bits twice: B5 at 32 KiB, I = 60; B6 at 128 x 2048 B
+    big = tx_mod(TX_FS[1], dev)
+    data = torch.from_numpy(rng.integers(0, 256, TXDATA_MAX).astype(np.uint8)).to(dev)
+    hist = tx_history(torch, rng, "pm1", big.k - 1, dev)
+    call = lambda: tx_ops.gfsk_tx_folded_iq(data, big.taps, big.interpolation, big.config.sensitivity, 1.5, hist)
+    first = [t.clone() for t in call()]
+    need(all(torch.equal(a, b) for a, b in zip(first, call())), "tx_folded: two identical calls differ")
+    nrz = torch.from_numpy(rng.choice([-1.0, 1.0], (2048 * 8, LANES)).astype(np.float32)).to(dev)
+    hist = tx_history(torch, rng, "pm1", (mod.k - 1, LANES), dev)
+    ph0 = torch.from_numpy(rng.uniform(0, 2 * np.pi, LANES)).to(dev)
+    call = lambda: tx_ops.gfsk_tx_call(nrz, *args, ph0, hist)
+    first = [t.clone() for t in call()]
+    need(all(torch.equal(a, b) for a, b in zip(first, call())), "tx: two identical calls differ")
+    return out
 
 
 def check_ragged(torch, dev):
@@ -1203,8 +1280,11 @@ def path_tx_server(torch, dev):
     """(d) the server's TX chain: every TxData through StreamingGfskMod.process
     (B5), the 32 KiB ones then through Doppler.process_tx, as
     TxSession.handle_tx_data runs them.  Counted: each call launches B5's
-    three kernels and never runs the plain version.  Then the same calls
+    kernels as tx_plan gives them (two a call at these sizes) and never
+    runs the plain version.  Then the same calls
     again, split into their steps (not counted)."""
+    from sdrmodem_tpu_torch.ops import tx as tx_ops
+
     calls = tx_calls()
     rng = np.random.default_rng(12)
     payloads = [rng.integers(0, 256, nb).astype(np.uint8) for _, nb, _ in calls]
@@ -1233,8 +1313,10 @@ def path_tx_server(torch, dev):
 
     (walls, dop_walls, stream), counts = counted(torch, "(d) TX, 100 x 2048 B + 8 + 2 x 32 KiB",
                                                   ("tx_folded",), run)
-    need(counts["tx_folded"] == 3 * len(calls), f"(d) {counts['tx_folded']} TX launches for "
-         f"{len(calls)} TxData: a call did not run B5's three kernels")
+    want = sum(tx_ops.tx_plan(nb * 8, int(fs // TX_RADIO[0]), tx_mod(fs, dev).k).launches
+               for fs, nb, _ in calls)
+    need(counts["tx_folded"] == want, f"(d) {counts['tx_folded']} TX launches for "
+         f"{len(calls)} TxData, {want} planned: a call did not run B5 as planned")
     # the 100 x 2048 B stream against the float64 chain over the whole payload
     mod = tx_mod(TX_FS[0], dev)
     wi, wq, _ = mod.process_pair(np.concatenate(payloads[:100]), exact=True)
@@ -1287,6 +1369,8 @@ def path_tx_server(torch, dev):
 def path_tx_batched(torch, dev):
     """(e) process_pair_kernel on 128 streams x 2048 B (B6): one warm-up
     and 20 timed calls, the bytes already on the card."""
+    from sdrmodem_tpu_torch.ops import tx as tx_ops
+
     mod = tx_mod(TX_FS[0], dev)
     data = torch.from_numpy(
         np.random.default_rng(14).integers(0, 256, (LANES, 2048)).astype(np.uint8)).to(dev)
@@ -1299,7 +1383,8 @@ def path_tx_batched(torch, dev):
         return ms, (time.perf_counter() - t0) / 20, out
 
     (ms, wall, (i, q, ph)), counts = counted(torch, "(e) TX batched 128 x 2048 B", ("tx",), run)
-    need(counts["tx"] == 3 * 21, f"(e) {counts['tx']} TX launches for 21 calls")
+    want = 21 * tx_ops.tx_plan(2048 * 8, mod.interpolation, mod.k, LANES).launches
+    need(counts["tx"] == want, f"(e) {counts['tx']} TX launches for 21 calls, {want} planned")
     wi, wq, wph = mod.process_pair(data, exact=True)
     err = max((i - wi).abs().max().item(), (q - wq).abs().max().item(), phase_gap(ph, wph))
     need(i.shape == (LANES, 2048 * 16) and err <= TX_ATOL, f"(e) batched TX: {err} off the float64 chain")
@@ -1790,7 +1875,7 @@ def tx_kernels(torch, dev, main, check_err):
         b, by = bound(*tx_cost(nb * 8, mod.interpolation, 1, mod.k, packed=True))
         folded[f"{nb} B at I = {mod.interpolation}"] = dict(
             ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-            max_abs_err=err)
+            max_abs_err=err, launches_a_call=tx_ops.tx_plan(nb * 8, mod.interpolation, mod.k).launches)
     mod = tx_mod(TX_FS[0], dev)
     nrz = torch.from_numpy(rng.choice([-1.0, 1.0], (2048 * 8, LANES)).astype(np.float32)).to(dev)
     hist = torch.zeros((mod.k - 1, LANES), dtype=torch.float32, device=dev)
@@ -1806,7 +1891,8 @@ def tx_kernels(torch, dev, main, check_err):
               phase_gap(got[2], ref[2]))
     b, by = bound(*tx_cost(2048 * 8, mod.interpolation, LANES, mod.k, packed=False))
     batched = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                   max_abs_err=err)
+                   max_abs_err=err, launches_a_call=tx_ops.tx_plan(2048 * 8, mod.interpolation, mod.k,
+                                                                   LANES).launches)
     log(f"[kernels] tx_folded (B5) alone: {json.dumps(folded)}; tx (B6) at 128 x 2048 B: "
         f"{json.dumps(batched)}")
     need(max(err, *(v["max_abs_err"] for v in folded.values())) <= TX_ATOL, "tx kernels at full width")

@@ -19,7 +19,8 @@ NCO's and the quad demod's device code: bit for bit, in y3 and the four
 tails, at every tile and segment edge of the fused kernel.  The TX
 kernels (B5, B6) within 1e-4 of their plain versions on I/Q and the phase
 (both carry the phase prefix in float64, summed in another order, and
-take cos/sin from two libraries), the exported history exact.  The ragged
+take cos/sin from two libraries), the exported history exact, and two
+identical calls give the same bits.  The ragged
 clock (B4) and the float64-accumulated FIR are exact: the same operations
 in the same order, at any number of B4's staged rows a slot.  The exact streamer on the card gives the bytes it
 gives on the CPU.  The fused step (B7) runs the front's and the clock's
@@ -448,7 +449,7 @@ def test_tx_folded_kernel_matches_plain(cuda, fs, nbytes, packed):
         i, q, ph = tx_ops.gfsk_tx_call_folded(nrz.to(cuda), *args, hist.to(cuda), n_valid=n_valid)
         i_p, q_p, ph_p = tx_ops.gfsk_tx_call_folded_plain(nrz, *args, hist, n_valid=n_valid)
         iq, iq_p = torch.complex(i, q), torch.complex(i_p, q_p)
-    assert tx_ops.folded_launches == n0 + 3
+    assert tx_ops.folded_launches == n0 + tx_ops.tx_plan(nbytes * 8, mod.interpolation, mod.k).launches
     torch.testing.assert_close(iq.cpu(), iq_p, rtol=0, atol=TX_ATOL)
     assert 0.0 <= ph.item() < 2 * np.pi
     assert _phase_gap(ph.item(), ph_p.item()) < TX_ATOL
@@ -465,7 +466,7 @@ def test_tx_batched_kernel_matches_plain(cuda, c, nbytes):
     n_valid = nbytes * 8 - 11
     n0 = tx_ops.batched_launches
     out = tx_ops.gfsk_tx_call(nrz_tm.to(cuda), *args, ph0.to(cuda), hist.to(cuda), n_valid=n_valid)
-    assert tx_ops.batched_launches == n0 + 3
+    assert tx_ops.batched_launches == n0 + tx_ops.tx_plan(nbytes * 8, mod.interpolation, mod.k, c).launches
     ref = tx_ops.gfsk_tx_call_plain(nrz_tm, *args, ph0, hist, n_valid=n_valid)
     for got, want in zip(out[:2], ref[:2]):
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TX_ATOL)
@@ -485,11 +486,114 @@ def test_streaming_mod_on_card_launches_b5(cuda):
         got.append(card.process(payload[i : i + c]))
         want.append(host.process(payload[i : i + c]))
         i += c
-    assert tx_ops.folded_launches == n0 + 3 * 5  # 35000 B is two dispatches
+    # 35000 B is two dispatches, 32768 B and 2232 B
+    launches = sum(tx_ops.tx_plan(8 * c, 2, card.k).launches for c in (100, 250, 32768, 2232, 4650))
+    assert tx_ops.folded_launches == n0 + launches
     got, want = np.concatenate(got), np.concatenate(want)
     assert got.shape == want.shape == (40000 * 8 * 2,)
     assert np.abs(got - want).max() < TX_ATOL
     assert _phase_gap(card.phase, host.phase) < TX_ATOL and np.array_equal(card.hist, host.hist)
+
+
+def _tx_hist(rng, kind, shape):
+    """A carried history: +-1 (a stream under way), zeros (its first call)
+    or other floats (any state ``load_state`` takes)."""
+    if kind == "zero":
+        return torch.zeros(shape, dtype=torch.float32)
+    vals = rng.choice([-1.0, 1.0], shape) if kind == "pm1" else rng.uniform(-1.5, 1.5, shape)
+    return torch.from_numpy(vals.astype(np.float32))
+
+
+# (sampling rate, NRZ rows, n_valid, history): n_valid at 0, on a tile edge,
+# on a run edge and past the payload; one tile of rows (one launch) and one
+# either side, eight and nine tiles; a zero and a non-+-1 history; I = 60 at
+# 32 KiB and on a tile edge there
+_TILE = tx_ops.tx_plan(1, 2, 5).tile  # rows a B5 tile at I = 2
+_FOLDED_EDGES = [
+    (19200, 4096 * 8, 0, "pm1"),
+    (19200, 4096 * 8, 3 * _TILE, "pm1"),
+    (19200, 4096 * 8, 77 * tx_ops.tx_plan(1, 2, 5).run, "pm1"),
+    (19200, 4096 * 8, 10**6, "pm1"),
+    (19200, _TILE, None, "zero"),
+    (19200, _TILE - 1, None, "other"),
+    (19200, _TILE + 1, None, "pm1"),
+    (19200, 8 * _TILE, 8 * _TILE - 3, "zero"),
+    (19200, 9 * _TILE, None, "zero"),
+    (19200, 9 * _TILE + 8, 9 * _TILE - 1, "other"),
+    (576000, 32768 * 8, None, "zero"),
+    (576000, 700 * 8, 3 * tx_ops.tx_plan(1, 60, 5).tile, "other"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fs,rows,n_valid,hist_kind", _FOLDED_EDGES)
+def test_tx_folded_kernel_edges(cuda, fs, rows, n_valid, hist_kind):
+    mod, rng = _tx_case(fs, rows)
+    data = torch.from_numpy(rng.integers(0, 256, -(-rows // 8)).astype(np.uint8))
+    nrz = tx_ops.bytes_to_nrz(data)[:rows].contiguous() if rows % 8 else data
+    hist = _tx_hist(rng, hist_kind, mod.k - 1)
+    args = (mod.taps, mod.interpolation, mod.config.sensitivity, 6.0)
+    plan = tx_ops.tx_plan(rows, mod.interpolation, mod.k)
+    n0 = tx_ops.folded_launches
+    iq, ph = tx_ops.gfsk_tx_folded_iq(nrz.to(cuda), *args, hist.to(cuda), n_valid=n_valid)
+    assert tx_ops.folded_launches == n0 + plan.launches
+    iq_p, ph_p = tx_ops.gfsk_tx_folded_iq_plain(nrz, *args, hist, n_valid=n_valid)
+    assert iq.shape == (rows * mod.interpolation,)
+    torch.testing.assert_close(iq.cpu(), iq_p, rtol=0, atol=TX_ATOL)
+    assert 0.0 <= ph.item() < 2 * np.pi
+    assert _phase_gap(ph.item(), ph_p.item()) < TX_ATOL
+
+
+# (lanes, NRZ rows, n_valid, history): 1 and 33 lanes; one launch (one
+# tile of 128 rows) and two; n_valid at 0 and on a tile edge
+_BATCHED_EDGES = [
+    (1, 4096, 4096 - 3, "pm1"),
+    (33, 128, 0, "zero"),
+    (33, 512, 0, "zero"),
+    (33, 8000, 3 * 128, "other"),
+    (5, 9 * 128 + 1, 9 * 128, "zero"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,rows,n_valid,hist_kind", _BATCHED_EDGES)
+def test_tx_batched_kernel_edges(cuda, c, rows, n_valid, hist_kind):
+    mod, rng = _tx_case(19200, c + rows)
+    nrz_tm = torch.from_numpy(rng.choice([-1.0, 1.0], (rows, c)).astype(np.float32))
+    hist = _tx_hist(rng, hist_kind, (mod.k - 1, c))
+    ph0 = torch.from_numpy(rng.uniform(0, 2 * np.pi, c))
+    args = (mod.taps, mod.interpolation, mod.config.sensitivity)
+    n0 = tx_ops.batched_launches
+    out = tx_ops.gfsk_tx_call(nrz_tm.to(cuda), *args, ph0.to(cuda), hist.to(cuda), n_valid=n_valid)
+    assert tx_ops.batched_launches == n0 + tx_ops.tx_plan(rows, mod.interpolation, mod.k, c).launches
+    ref = tx_ops.gfsk_tx_call_plain(nrz_tm, *args, ph0, hist, n_valid=n_valid)
+    for got, want in zip(out[:2], ref[:2]):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TX_ATOL)
+    assert max(_phase_gap(a, b) for a, b in zip(out[2].tolist(), ref[2].tolist())) < TX_ATOL
+    assert torch.equal(out[3].cpu(), ref[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["tx_folded", "tx"])
+def test_tx_same_bits_twice(cuda, kernel):
+    """Two identical calls give the same bits: every float64 sum of the
+    prefix is taken in a fixed order, whatever order the blocks run in."""
+    mod, rng = _tx_case(576000 if kernel == "tx_folded" else 19200, 3)
+    if kernel == "tx_folded":
+        data = torch.from_numpy(rng.integers(0, 256, 32768).astype(np.uint8)).to(cuda)
+        hist = _tx_hist(rng, "pm1", mod.k - 1).to(cuda)
+        call = lambda: tx_ops.gfsk_tx_folded_iq(data, mod.taps, mod.interpolation,
+                                                 mod.config.sensitivity, 2.0, hist)
+    else:
+        nrz_tm = torch.from_numpy(rng.choice([-1.0, 1.0], (2048 * 8, 128)).astype(np.float32)).to(cuda)
+        hist = _tx_hist(rng, "pm1", (mod.k - 1, 128)).to(cuda)
+        ph0 = torch.from_numpy(rng.uniform(0, 2 * np.pi, 128)).to(cuda)
+        call = lambda: tx_ops.gfsk_tx_call(nrz_tm, mod.taps, mod.interpolation,
+                                           mod.config.sensitivity, ph0, hist)
+    first = [t.clone() for t in call()]
+    second = call()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def _b4_args(c, n, device, seed):

@@ -253,6 +253,65 @@ def test_batched_call_matches_jax_with_carried_state():
     assert np.array_equal(_np(got[3]), np.asarray(want[3]))
 
 
+@pytest.mark.parametrize("rows,interp,k,lanes,want", [
+    # B5: the server's TxData, 2048 B and 32 KiB at I = 2, 32 KiB at I = 60
+    (2048 * 8, 2, 5, None, (2, 512, 32, 32, 2, True)),
+    (32768 * 8, 2, 5, None, (2, 512, 512, 512, 2, True)),
+    (32768 * 8, 60, 5, None, (1, 256, 1024, 1024, 2, True)),
+    # one tile (one launch, no scratch) and one either side
+    (512, 2, 5, None, (2, 512, 1, 0, 1, True)),
+    (511, 2, 5, None, (2, 512, 1, 0, 1, True)),
+    (513, 2, 5, None, (2, 512, 2, 2, 2, True)),
+    (8 * 512 + 1, 2, 5, None, (2, 512, 9, 9, 2, True)),
+    # a run of one row once I passes the run's samples; odd I
+    (1000, 17, 5, None, (1, 256, 4, 4, 2, True)),
+    (1000, 3, 5, None, (1, 256, 4, 4, 2, True)),
+    # the table: 2^k x I at most 65536 float64, k at most 8
+    (100, 2048, 5, None, (1, 256, 1, 0, 1, True)),
+    (100, 2049, 5, None, (1, 256, 1, 0, 1, False)),
+    (100, 2, 8, None, (2, 512, 1, 0, 1, True)),
+    (100, 2, 9, None, (2, 512, 1, 0, 1, False)),
+    (2 * 512, 2, 9, None, (2, 512, 2, 2, 2, False)),
+    # B6: 128 x 2048 B at I = 2 (path (e)), 32 KiB at I = 60, 1 and 33 lanes;
+    # at I = 1 a run stops at 16 rows
+    (2048 * 8, 2, 5, 128, (16, 128, 128, 128, 2, True)),
+    (32768 * 8, 60, 5, 4, (1, 8, 32768, 32768, 2, True)),
+    (4096, 2, 5, 1, (16, 128, 32, 32, 2, True)),
+    (128, 2, 5, 33, (16, 128, 1, 0, 1, True)),
+    (512, 2, 5, 33, (16, 128, 4, 4, 2, True)),
+    (8 * 128, 48, 5, 33, (1, 8, 128, 128, 2, True)),
+    (4096, 1, 5, 3, (16, 128, 32, 32, 2, True)),
+])
+def test_tx_plan(rows, interp, k, lanes, want):
+    """tx_plan by hand: runs of min(16, max(1, 4 // I)) rows (B5, 256 runs
+    a tile) or min(16, max(1, 32 // I)) (B6, 8 runs a lane a tile); one
+    launch and no scratch for a stream of one tile, else two and a float64
+    total a tile; the pattern table where k <= 8 and 2^k x I <= 65536."""
+    plan = tx_ops.tx_plan(rows, interp, k, lanes)
+    assert tuple(plan) == want
+    assert plan.tiles * plan.tile >= rows > (plan.tiles - 1) * plan.tile
+
+
+@pytest.mark.parametrize("fs", [PERF_FS, 48000, PLUTO_FS])
+def test_pattern_table_equals_plain_increments(fs):
+    """Every entry of the kernels' pattern table is the float64 prefix of
+    its pattern's float32 increments as the plain version computes them
+    (``polyphase_rows`` on the pattern's k rows of +-1, then sens * y):
+    equal, bit for bit."""
+    _, tm = _mods(fs)
+    t2d = tx_ops.phase_taps(np.asarray(tm.taps, np.float32), tm.interpolation)
+    k, ii = t2d.shape
+    table = tx_ops.pattern_table(t2d, tm.config.sensitivity)
+    assert table.shape == (1 << k, ii) and table.dtype == np.float64
+    p = np.arange(1 << k)
+    rows = np.where((p[None, :] >> np.arange(k - 1, -1, -1)[:, None]) & 1, 1.0, -1.0)  # (k, P)
+    y = tx_ops.polyphase_rows(torch.from_numpy(rows.astype(np.float32)), torch.from_numpy(t2d), 1)
+    sens = torch.tensor(float(np.float32(tm.config.sensitivity)), dtype=torch.float32)
+    inc = (sens * y[0]).double().T  # (P, I)
+    assert np.array_equal(table, torch.cumsum(inc, dim=1).numpy())
+    assert np.abs(table).max() < 2 * np.pi  # the kernels take the table: one compare a sample
+
+
 def _stream(mod, payload, chunks):
     out, i = [], 0
     for c in chunks:
