@@ -82,7 +82,24 @@ Phases (any failure exits non-zero, and no result line is printed):
              streamer, ms a block and Msamples/s, then its stages and B4
              alone; (g) the same in float32; (h) make_batched_step("pallas")
              at 128 x 2^20, every lane full and then half the lanes short.
-             After (a), B4 over [suffix | y3] of its block, in both
+             (j)-(l) the port's server in-process (SdrModemServer with its
+             default device, the card, on 127.0.0.1:0, buffer_size
+             262144), fed by a mock sdr-server and driven by wire clients
+             (tests/torch_server_helpers.py): (j) demod_mode = exact, four
+             clients on one stream of the corrected lucky7 capture over 4
+             blocks, each client's bytes equal to the exact streamer run
+             directly, the first pass within +-2 LSB of the golden; (k)
+             demod_mode = fast, 128 clients (every lane of one group) on
+             the raw lucky7 pass over 4 blocks, client k with the pass's
+             Doppler from PASS_START + k, every lane equal to the group's
+             step run directly with the same tables, B1 and B2 launched,
+             B7 never, and lane 0 of the same direct run with the
+             Doppler interpolated every 2000 samples (the goldens'
+             cadence) within +-2 LSB of the golden; (l) one TX client into a file device, 100 TxData of
+             2048 B and 2 of the wire's largest, the dump equal to
+             StreamingGfskMod's, B5 launched as tx_plan gives it.  Each
+             prints ms a block from the mock to the last client's last
+             symbol, or ms from a TxData to its response.  After (a), B4 over [suffix | y3] of its block, in both
              layouts, must equal B2's symbols; in (f) and (g), B4 at the
              streamer's one-lane buffer must equal its plain version;
 5. kernels — each kernel alone at its path's shape: time, its plain
@@ -1560,9 +1577,14 @@ def phase_main(torch, dev):
     add(counts)
     long_taps, counts = path_long_taps(torch, dev)
     add(counts)
+    server_paths = {}
+    for name, fn in (("j", path_server_exact), ("k", path_server_fast), ("l", path_server_tx)):
+        server_paths[name], counts = fn(torch, dev)
+        add(counts)
     log(f"[main] launches over every main-path run: {json.dumps(totals)}")
     return dict(totals=totals, fir_tpu_ms=fir_tpu_ms, x_fir=x_fir, y_fir=y_fir, lpf2=lpf2,
                 tx_server=tx_server, tx_batched=tx_batched, streams=streams, ragged=ragged, long_taps=long_taps,
+                server_paths=server_paths,
                 b4_b2=b4_b2, server_ms={k: v["ms_step"] for k, v in server.items()}, step_ms=step_ms,
                 front_err=max(front_errs), fir_err=max(fir_errs.values()))
 
@@ -1824,6 +1846,227 @@ def path_long_taps(torch, dev):
     log(f"[main] (i) long filters through the banded front: {ms:.4f} ms/step (CUDA events), "
         f"{c * bs / (ms * 1e-3) / 1e6:.1f} Msamples/s [{card()}]")
     return dict(ms_step=ms, front_err=err), counts
+
+
+SERVER_CLIENTS = 4  # path (j): exact clients sharing one sdr-server stream
+SERVER_BLOCKS = 4  # blocks of 262144 the mock sends in paths (j) and (k)
+TX_SERVER_SMALL = 100  # path (l): tools/perf.py:4's 100 TxData of 2048 B, then 2 of the wire's largest
+
+
+def wire_doppler():
+    """DOPPLER's observer and TLE as the wire carries them (lat/lon x 1e7,
+    altitude x 1e4: server/session.py:doppler_from_settings)."""
+    from sdrmodem_tpu_torch.server import wire
+
+    return wire.DopplerSettings(tle=TLE, latitude=round(DOPPLER["latitude"] * 1e7),
+                                longitude=round(DOPPLER["longitude"] * 1e7),
+                                altitude=round(DOPPLER["altitude_km"] * 1e4))
+
+
+def serve_rx(mode, requests, blocks, cumulative):
+    """``tests/torch_server_helpers.py:serve_rx`` on the default ServerConfig
+    (buffer_size SERVER_BLOCK) in ``demod_mode`` ``mode``, writing under
+    build/."""
+    import tempfile
+
+    from sdrmodem_tpu_torch.server.config import ServerConfig
+    from tests.torch_server_helpers import serve_rx as serve
+
+    need(ServerConfig().buffer_size == SERVER_BLOCK, f"the server's buffer_size is {ServerConfig().buffer_size}")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as base:
+        return serve(base, {"demod_mode": mode}, requests, blocks, cumulative, timeout=900)
+
+
+def path_server_exact(torch, dev):
+    """(j) the default server: demod_mode = exact, buffer_size 262144, four
+    clients sharing one mock sdr-server stream of the corrected lucky7
+    capture repeated over SERVER_BLOCKS blocks.  Each client's bytes must
+    equal the exact streamer run directly on the card over the same blocks,
+    and its first pass lie within +-2 LSB of the golden, hard decisions
+    equal; the float64 FIR and B4 must launch, on the card."""
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.utils.parity import golden_report
+    from tests.torch_server_helpers import rx_request
+
+    b = SERVER_BLOCK
+    iq = np.resize(np.fromfile(FIXTURES / "lucky7.expected.cf32", np.complex64), SERVER_BLOCKS * b)
+    blocks = [iq[t * b : (t + 1) * b] for t in range(SERVER_BLOCKS)]
+    streamer = DemodPipeline(FskDemodConfig(*LUCKY7), b, exact=True, device=dev).streamer()
+    direct = [streamer.process(blk) for blk in blocks]
+    cumulative = [np.cumsum([len(d) for d in direct])] * SERVER_CLIENTS
+    (got, ms, where), counts = counted(
+        torch, f"(j) server, exact, {SERVER_CLIENTS} clients x {SERVER_BLOCKS} blocks of {b}",
+        ("fir_exact", "clock_ragged"),
+        lambda: serve_rx("exact", [rx_request()] * SERVER_CLIENTS, blocks, cumulative),
+        never=("front", "front_fused", "clock", "step", "fir"))
+    need(all(d == "cuda" for _, d in where), "(j): a client's DSP is not on the card")
+    want = np.concatenate(direct)
+    golden = np.fromfile(FIXTURES / "lucky7.expected.s8", np.int8)
+    for k, g in enumerate(got):
+        need(np.array_equal(g, want), f"(j) client {k}: bytes differ from the exact streamer's")
+    rep = golden_report(got[0][: len(golden)], golden)
+    need(rep["max_lsb"] <= 2 and rep["hard_decision_agreement"] == 1.0,
+         f"(j) first pass {rep['max_lsb']} LSB from the golden, agreement {rep['hard_decision_agreement']}")
+    log(f"[main] (j) server, exact: every client's {len(want)} bytes equal the exact streamer's; "
+        f"golden {json.dumps(rep)}; ms a block of {b} from the mock to the last client's last "
+        f"symbol: {json.dumps([round(m, 3) for m in ms])}, median {np.median(ms):.3f} [{card()}]")
+    return dict(ms_blocks=ms, median_ms=float(np.median(ms))), counts
+
+
+def path_server_fast(torch, dev):
+    """(k) the fast group at full width: demod_mode = fast, LANES clients
+    (every lane of one group), buffer_size 262144, the raw lucky7 pass
+    repeated over SERVER_BLOCKS blocks, client k with DOPPLER's observer
+    and TLE from PASS_START + k.  Every lane's bytes must equal the group's
+    step run directly at LANES lanes over the same blocks, with tables from
+    device_segments of Dopplers built by the port's doppler_from_settings
+    with the same settings; B1 and B2 must launch, B7 never.  The same
+    direct run with the Doppler interpolated every 2000 samples (the
+    goldens' cadence) must bring lane 0's first pass within +-2 LSB of the
+    golden for 99.5% of its symbols."""
+    from sdrmodem_tpu_torch.dsp.doppler import Doppler
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.server.session import BatchedRxGroup, doppler_from_settings
+    from sdrmodem_tpu_torch.utils.convert import doppler_tables_from_numpy, segment_tables
+    from sdrmodem_tpu_torch.utils.parity import golden_report
+    from tests.torch_server_helpers import rx_request
+
+    b, c, fs = SERVER_BLOCK, BatchedRxGroup.LANES, LUCKY7[0]
+    need(c == LANES, f"the group has {c} lanes")
+    iq = np.resize(np.fromfile(FIXTURES / "lucky7.cf32", np.complex64), SERVER_BLOCKS * b)
+    blocks = [iq[t * b : (t + 1) * b] for t in range(SERVER_BLOCKS)]
+    settings, starts = wire_doppler(), [PASS_START + k for k in range(c)]
+    pipe = DemodPipeline(FskDemodConfig(*LUCKY7), b, device=dev)
+    step = pipe.make_batched_step_full("pallas", doppler=True, layout="fanout")
+
+    def run_direct(max_batch):
+        """Each lane's symbols a block from the step run directly, Doppler
+        rows interpolated every max_batch samples (None: once a block)."""
+        dops = {k: doppler_from_settings(settings, fs, DOPPLER["center_freq"], 0, s) for k, s in enumerate(starts)}
+        state, out = pipe.init_full_state(c), [[] for _ in range(c)]
+        for blk in blocks:
+            rows = {k: d.device_segments(b, +1, max_batch=max_batch) for k, d in dops.items()}
+            tables = doppler_tables_from_numpy(segment_tables(rows, Doppler.max_rows(b, fs, max_batch), c), c,
+                                               device=dev)
+            x = torch.from_numpy(np.stack([blk.real, blk.imag]).astype(np.float32)).to(dev)
+            state, sym, cnt = step(state, x, tables)
+            sym, cnt = sym.cpu().numpy(), cnt.cpu().numpy()
+            for k in range(c):
+                out[k].append(np.concatenate([sym[k, j, : cnt[k, j]] for j in range(cnt.shape[1])]))
+        return out
+
+    # the same step, blocks and settings at the goldens' 2000-sample Doppler
+    # cadence: lane 0's first pass must meet the golden, as phase 3's does
+    golden = np.fromfile(FIXTURES / "lucky7.expected.s8", np.int8)
+
+    def first_pass(sym):
+        rep = golden_report(sym[: len(golden)], golden)
+        m = min(len(sym), len(golden))
+        rep["within_2_lsb"] = float((np.abs(sym[:m].astype(np.int32) - golden[:m].astype(np.int32)) <= 2).mean())
+        return rep
+
+    cadenced = first_pass(np.concatenate(run_direct(2000)[0]))
+    need(cadenced["symbols"] >= 0.99 * len(golden), "(k) cadenced direct step: too few symbols")
+    need(cadenced["within_2_lsb"] >= 0.995, f"(k) cadenced direct step: only {cadenced['within_2_lsb']} "
+         "of lane 0 within +-2 LSB of the golden")
+    need(cadenced["hard_decision_agreement"] >= 0.99,
+         f"(k) cadenced direct step: hard decisions {cadenced['hard_decision_agreement']}")
+    direct = run_direct(None)
+    cumulative = [np.cumsum([len(d) for d in lane]) for lane in direct]
+    requests = [rx_request(settings, s) for s in starts]
+    (got, ms, where), counts = counted(
+        torch, f"(k) server, fast, {c} clients x {SERVER_BLOCKS} blocks of {b}, Doppler on every lane",
+        ("front_fused", "clock"), lambda: serve_rx("fast", requests, blocks, cumulative),
+        never=("step", "fir", "clock_ragged", "fir_exact"))
+    need([lane for lane, _ in where] == list(range(c)), "(k): client k is not lane k")
+    need(all(d == "cuda" for _, d in where), "(k): the group is not on the card")
+    for k, g in enumerate(got):
+        need(np.array_equal(g, np.concatenate(direct[k])), f"(k) lane {k}: bytes differ from the direct step's")
+    rep = first_pass(got[0])
+    log(f"[main] (k) server, fast: all {c} lanes' bytes ({sum(len(g) for g in got)} in all) equal the "
+        f"direct step's, bit for bit; lane 0's first pass against the golden, the Doppler shift held "
+        f"a second at a time as the group's blocks give it, as the JAX package's group does "
+        f"(tests/test_torch_server_doppler.py): {json.dumps(rep)}; the direct step at the goldens' "
+        f"2000-sample cadence: {json.dumps(cadenced)}; ms a block of {b} from the mock to the last "
+        f"lane's last symbol: {json.dumps([round(x, 3) for x in ms])}, median {np.median(ms):.3f} [{card()}]")
+    return dict(ms_blocks=ms, median_ms=float(np.median(ms)), golden_first_pass=rep,
+                golden_cadenced=cadenced), counts
+
+
+def path_server_tx(torch, dev):
+    """(l) TX through the server: one client, tx_sdr_type = file, 100
+    TxData of 2048 B then 2 of the wire's largest (a 32 KiB message less
+    its framing: 32764 B) at 19200 Hz / 9600 Bd, each awaited.
+    The dump must equal StreamingGfskMod run directly on the card over the
+    same payloads, bit for bit, and B5 launch as tx_plan gives it."""
+    import asyncio
+    import tempfile
+
+    from sdrmodem_tpu_torch.dsp.gfsk_mod import GfskModConfig
+    from sdrmodem_tpu_torch.dsp.streaming import StreamingGfskMod
+    from sdrmodem_tpu_torch.ops import tx as tx_ops
+    from sdrmodem_tpu_torch.server import wire
+    from sdrmodem_tpu_torch.server.config import TxSdrType
+    from sdrmodem_tpu_torch.server.tcp_server import SdrModemServer
+    from tests.torch_server_helpers import ModemClient, server_config
+
+    fs, (baud, deviation) = TX_FS[0], TX_RADIO
+    largest = wire.MAX_MESSAGE_LENGTH
+    while len(wire.TxData(bytes(largest)).encode()) > wire.MAX_MESSAGE_LENGTH:
+        largest -= 1
+    rng = np.random.default_rng(15)
+    payloads = [rng.integers(0, 256, n).astype(np.uint8).tobytes()
+                for n in [2048] * TX_SERVER_SMALL + [largest] * 2]
+    mod = StreamingGfskMod(GfskModConfig.from_radio(fs, baud, deviation), device=dev)
+    want = np.concatenate([mod.process(p) for p in payloads])
+
+    async def body(base):
+        server = SdrModemServer(server_config(base, tx_sdr_type=TxSdrType.FILE))
+        need(server.device.type == "cuda", f"the server chose {server.device}")
+        await server.start()
+        c = await ModemClient.connect("127.0.0.1", server.port)
+        resp = await c.tx_request(wire.TxRequest(
+            tx_center_freq=DOPPLER["center_freq"], tx_sampling_freq=fs, tx_dump_file=True,
+            mod_type=wire.ModemType.GMSK, mod_baud_rate=baud,
+            fsk_settings=wire.FskModulationSettings(deviation),
+            file_settings=wire.FileSettings(str(pathlib.Path(base) / "sink.cf32"))))
+        need(resp.status == 0, f"tx request refused: {resp}")
+        walls = []
+        for p in payloads:
+            t0 = time.perf_counter()
+            ack = await c.tx_data(p)
+            walls.append(time.perf_counter() - t0)
+            need(ack.status == 0, f"TxData of {len(p)} B: {ack}")
+        await c.shutdown()
+        await asyncio.sleep(0.2)
+        c.close()
+        await server.stop()
+        dump = np.fromfile(next(pathlib.Path(base).glob("tx.mod2sdr.*.cf32")), np.complex64)
+        sink = np.fromfile(pathlib.Path(base) / "sink.cf32", np.complex64)
+        return walls, dump, sink
+
+    def run():
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as base:
+            return asyncio.run(asyncio.wait_for(body(base), 600))
+
+    (walls, dump, sink), counts = counted(
+        torch, f"(l) server, TX, {len(payloads)} TxData", ("tx_folded",), run,
+        never=("tx", "front", "front_fused", "clock", "clock_ragged", "step", "fir", "fir_exact"))
+    k = mod.k
+    plan = sum(tx_ops.tx_plan(len(p) * 8, int(fs // baud), k).launches for p in payloads)
+    need(counts["tx_folded"] == plan, f"(l) {counts['tx_folded']} B5 launches, {plan} planned")
+    need(np.array_equal(dump, want) and np.array_equal(sink, want),
+         "(l): the server's TX differs from StreamingGfskMod's, bit for bit")
+    med, p90 = stats(walls[:TX_SERVER_SMALL])
+    big = stats(walls[TX_SERVER_SMALL:])
+    log(f"[main] (l) server, TX: the dump ({len(dump)} samples) equals StreamingGfskMod's bit for bit; "
+        f"a 2048-B TxData to its response: median {med:.4f} ms, p90 {p90:.4f}; {largest} B: median "
+        f"{big[0]:.4f} ms [{card()}]")
+    return dict(median_ms=med, p90_ms=p90, ms_32k=big[0]), counts
 
 
 def ragged_clock_cost(c, w, k, symbols):

@@ -6,7 +6,9 @@ root of the checkout, on first use.  ``<hash>`` covers the source's
 compiler flags, its text and the text of every shared header
 ``csrc/*.cuh``, so a change of any of them (the clock's ``-fmad=false``,
 the FIR kernel in ``fir.cuh``) names a new library and a stale one is
-never loaded.  No PyTorch headers are included, so a build takes seconds.  Every C entry
+never loaded.  No PyTorch headers are included, so a build takes seconds.
+Builds and loads take one lock: the server's sessions call the kernels
+from worker threads, and two first calls of one source build it once.  Every C entry
 point returns the ``cudaGetLastError()`` value after its launches, and
 ``check`` raises on anything but 0.
 """
@@ -18,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -41,6 +44,7 @@ NVCC_FLAGS = [
 EXTRA_FLAGS = {"clock": ["-fmad=false"]}
 
 _libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.RLock()  # one build or load at a time in this process
 
 
 def _nvcc() -> str:
@@ -68,6 +72,11 @@ def build(names: list[str] | None = None) -> dict[str, str]:
     and shared-memory use from ``-Xptxas -v``); raises if any build fails."""
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with _lock:
+        return _build(names)
+
+
+def _build(names: list[str]) -> dict[str, str]:
     todo = {n: library_path(n) for n in names}
     todo = {n: lib for n, lib in todo.items() if not lib.exists()}
     if not todo:
@@ -106,15 +115,19 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     ``signatures`` maps each C function to its ``argtypes``: pointers and
     the stream are ``c_void_p``, so ctypes never cuts them to 32 bits."""
     lib = _libs.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.cuda_error_string.argtypes = [ctypes.c_int]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
     return lib
 
 

@@ -1085,3 +1085,61 @@ def test_step_plan_matches_kernel_layout(cuda):
                                       (157, 57, 0, 2, 256, 64), (4819, 2891, 12797, 2, 1024, 112),
                                       (33, 9, 5, 3, 64, 40)):
         assert lib.step_shared_bytes(t1, t2, t3, d, chunk, sfx) == step_ops.step_plan(t1, t2, t3, d, chunk, sfx)
+
+
+@pytest.mark.cuda
+def test_server_exact_client_and_fast_group_equal_direct_calls(cuda, tmp_path):
+    """The port's server on the card: one exact-mode client's bytes equal
+    the exact streamer run directly; a 4-client fast group's lanes, each
+    with its own Doppler pass, equal the group's step run directly over the
+    same blocks and tables, bit for bit."""
+    import pathlib
+
+    from sdrmodem_tpu_torch.server import wire
+    from sdrmodem_tpu_torch.server.session import BatchedRxGroup, doppler_from_settings
+    from tests.torch_server_helpers import rx_request, serve_rx
+
+    fixtures = pathlib.Path(__file__).resolve().parent / "fixtures"
+    cfg = FskDemodConfig(*CONFIGS["lucky7"])
+    block = 8192
+
+    iq = np.fromfile(fixtures / "lucky7.expected.cf32", np.complex64)[: 4 * block]
+    direct = DemodPipeline(cfg, block, exact=True, device=cuda).streamer().process(iq)
+    n0 = (clock_ops.ragged_launches, fir_ops.exact_launches)
+    config = dict(buffer_size=block, read_timeout_seconds=5)
+    (got,), _, where = serve_rx(tmp_path, {**config, "demod_mode": "exact"}, [rx_request()], [iq],
+                                [[len(direct)]], timeout=300)
+    assert where == [(-1, "cuda")]
+    assert clock_ops.ragged_launches > n0[0] and fir_ops.exact_launches > n0[1]
+    np.testing.assert_array_equal(got, direct)
+
+    raw = np.fromfile(fixtures / "lucky7.cf32", np.complex64)[: 4 * block]
+    settings = wire.DopplerSettings(tle=DOPPLER["tle_lines"], latitude=537200000,
+                                    longitude=475700000, altitude=0)
+    starts = [DOPPLER["start_time_seconds"] + k for k in range(4)]
+    pipe = DemodPipeline(cfg, block, device=cuda)
+    step = pipe.make_batched_step_full("pallas", doppler=True, layout="fanout")
+    c = BatchedRxGroup.LANES
+    state = pipe.init_full_state(c)
+    dops = [doppler_from_settings(settings, 48000, 437525000, 0, s) for s in starts]
+    want = [[] for _ in dops]
+    for t in range(4):
+        blk = raw[t * block : (t + 1) * block]
+        x = torch.from_numpy(np.stack([blk.real, blk.imag]).astype(np.float32)).to(cuda)
+        rows = {k: d.device_segments(block, +1) for k, d in enumerate(dops)}
+        tables = doppler_tables_from_numpy(
+            segment_tables(rows, Doppler.max_rows(block, 48000), c), c, device=cuda)
+        state, sym, cnt = step(state, x, tables)
+        sym, cnt = sym.cpu().numpy(), cnt.cpu().numpy()
+        for k in range(len(dops)):
+            want[k] += [sym[k, j, : cnt[k, j]] for j in range(cnt.shape[1])]
+    want = [np.concatenate(w) for w in want]
+    n0 = (front_ops.fused_launches, clock_ops.launches, step_ops.launches)
+    got, _, where = serve_rx(tmp_path, {**config, "demod_mode": "fast"},
+                             [rx_request(settings, s) for s in starts], [raw],
+                             [[len(w)] for w in want], timeout=300)
+    assert front_ops.fused_launches > n0[0] and clock_ops.launches > n0[1]
+    assert step_ops.launches == n0[2]
+    assert where == [(k, "cuda") for k in range(4)]  # client k is lane k of the direct run
+    for k, g in enumerate(got):
+        np.testing.assert_array_equal(g, want[k], err_msg=f"client {k}")

@@ -59,6 +59,10 @@ def test_import_pulls_in_no_jax():
         "from sdrmodem_tpu_torch.ops import fir, front, clock, tx\n"
         "from sdrmodem_tpu_torch import FskDemodulator\n"
         "from sdrmodem_tpu_torch.orbit import observer, sdp4, sgp4, solar, timeutil, tle\n"
+        "from sdrmodem_tpu_torch.server import config, session, tcp_server, wire\n"
+        "from sdrmodem_tpu_torch.devices import base, file_source, iio_lib, native_ingest\n"
+        "from sdrmodem_tpu_torch.devices import plutosdr, sdr_server_client\n"
+        "from sdrmodem_tpu_torch.utils import native, queue\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'sdrmodem_tpu.'))"
         " or m == 'sdrmodem_tpu']\n"
         "assert not bad, bad\n"
@@ -73,7 +77,9 @@ def test_sources_import_nothing_of_the_jax_package():
                  "sdrmodem_tpu_torch/ops/fir.py", "sdrmodem_tpu_torch/dsp/gfsk_mod.py",
                  "sdrmodem_tpu_torch/dsp/streaming.py", "sdrmodem_tpu_torch/dsp/nco_host.py",
                  "sdrmodem_tpu_torch/ops/tx.py", "sdrmodem_tpu_torch/dsp/fsk_demod.py",
-                 "sdrmodem_tpu_torch/dsp/clock_recovery.py", "sdrmodem_tpu_torch/dsp/pipeline.py"):
+                 "sdrmodem_tpu_torch/dsp/clock_recovery.py", "sdrmodem_tpu_torch/dsp/pipeline.py",
+                 "sdrmodem_tpu_torch/server/tcp_server.py", "sdrmodem_tpu_torch/server/session.py",
+                 "sdrmodem_tpu_torch/devices/plutosdr.py", "sdrmodem_tpu_torch/utils/native.py"):
         assert want in names
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -156,6 +162,52 @@ def test_library_name_follows_compiler_flags(monkeypatch):
     assert _build.library_path("clock") != clock
     monkeypatch.setattr(_build, "NVCC_FLAGS", [*_build.NVCC_FLAGS, "-lineinfo"])
     assert _build.library_path("front") != front
+
+
+def test_load_builds_once_from_many_threads(monkeypatch):
+    """Threads whose first kernel call loads the same library (server
+    clients' first blocks on a cold build directory) build it once: the
+    others wait for the first and take its library.  More threads than
+    cores, and a short switch interval, so a check-then-build race would
+    show."""
+    import os
+    import sys
+    import threading
+    import time
+    import types
+
+    calls = []
+
+    def slow_build(names=None):
+        calls.append(list(names))
+        time.sleep(0.2)  # nvcc's time, during which the other threads arrive
+        return {}
+
+    class FakeLib:
+        def __getattr__(self, fn):
+            f = types.SimpleNamespace()
+            setattr(self, fn, f)
+            return f
+
+    monkeypatch.setattr(_build, "build", slow_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: FakeLib())
+    monkeypatch.setattr(_build, "_libs", {})
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(_build.load("clock", {"f": []})))
+               for _ in range(2 * (os.cpu_count() or 4))]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(10)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert calls == [["clock"]]
+    assert len(got) == len(threads) and all(lib is got[0] for lib in got)
+    assert got[0].f.argtypes == []
 
 
 def test_full_state_from_numpy_defaults_to_cuda():
