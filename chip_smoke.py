@@ -99,7 +99,25 @@ Phases (any failure exits non-zero, and no result line is printed):
              2048 B and 2 of the wire's largest, the dump equal to
              StreamingGfskMod's, B5 launched as tx_plan gives it.  Each
              prints ms a block from the mock to the last client's last
-             symbol, or ms from a TxData to its response.  After (a), B4 over [suffix | y3] of its block, in both
+             symbol, or ms from a TxData to its response.
+             (m)-(q) several shards, all on the one card (a mesh may
+             repeat a device; no scaling is claimed): (m)
+             ShardedChannelDemodFull over 4 shards, 512 lanes x 262144, two
+             steps, its symbols and state equal to the unsharded 512-lane
+             step's, both timed, and ShardedChannelDemod over 2 shards, 16
+             channels, ragged, equal to make_batched_step("pallas"); (n)
+             demod_pipelined over 4 shards, 128 streams x 2^20, each equal
+             to the unsharded step at 262144, stream 0 within +-2 LSB of
+             the golden; the raw pass with its Doppler tables and a
+             corrected stream, each equal to the unsharded step with the
+             same tables and within +-2 LSB of the golden; and
+             demod_grid_sharded on 2 x 2 shards; (o) the server with
+             LANES = 512 and its group's lanes over 4 shards
+             (SdrModemServer(devices=...)), path (k)'s clients and blocks,
+             every lane equal to the unsharded 512-lane step; (p) python -m
+             sdrmodem_tpu_torch.tools.multihost --backend gloo, 2
+             processes x 2 shards, 16 streams x 32768, 0 symbols differing
+             from one process; (q) the parity tool, both modes, its gate.  After (a), B4 over [suffix | y3] of its block, in both
              layouts, must equal B2's symbols; in (f) and (g), B4 at the
              streamer's one-lane buffer must equal its plain version;
 5. kernels — each kernel alone at its path's shape: time, its plain
@@ -131,8 +149,10 @@ without a CUDA device, or where the port is not beside this script.
 
 import functools
 import json
+import os
 import pathlib
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -1412,7 +1432,7 @@ def path_tx_batched(torch, dev):
 
 
 def phase_main(torch, dev):
-    """The main-path runs (a) to (e), each counted on its own."""
+    """The main-path runs (a) to (q), each counted on its own."""
     from sdrmodem_tpu_torch.dsp.clock_recovery import chunk_plan
     from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
     from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
@@ -1581,10 +1601,21 @@ def phase_main(torch, dev):
     for name, fn in (("j", path_server_exact), ("k", path_server_fast), ("l", path_server_tx)):
         server_paths[name], counts = fn(torch, dev)
         add(counts)
+    sharded_paths = {}
+    for name, fn in (("m", path_channel_sharded), ("n", path_time_sharded), ("o", path_server_mesh),
+                     ("p", path_multihost), ("q", path_parity)):
+        t0 = time.perf_counter()
+        out = fn(torch, dev)
+        if name == "p":  # its kernels launch in the tool's own processes
+            sharded_paths[name] = out
+        else:
+            sharded_paths[name], counts = out
+            add(counts)
+        log(f"[main] ({name}) took {time.perf_counter() - t0:.3f} s")
     log(f"[main] launches over every main-path run: {json.dumps(totals)}")
     return dict(totals=totals, fir_tpu_ms=fir_tpu_ms, x_fir=x_fir, y_fir=y_fir, lpf2=lpf2,
                 tx_server=tx_server, tx_batched=tx_batched, streams=streams, ragged=ragged, long_taps=long_taps,
-                server_paths=server_paths,
+                server_paths=server_paths, sharded_paths=sharded_paths,
                 b4_b2=b4_b2, server_ms={k: v["ms_step"] for k, v in server.items()}, step_ms=step_ms,
                 front_err=max(front_errs), fir_err=max(fir_errs.values()))
 
@@ -1863,10 +1894,10 @@ def wire_doppler():
                                 altitude=round(DOPPLER["altitude_km"] * 1e4))
 
 
-def serve_rx(mode, requests, blocks, cumulative):
+def serve_rx(mode, requests, blocks, cumulative, **server_kw):
     """``tests/torch_server_helpers.py:serve_rx`` on the default ServerConfig
     (buffer_size SERVER_BLOCK) in ``demod_mode`` ``mode``, writing under
-    build/."""
+    build/; ``server_kw`` goes to SdrModemServer."""
     import tempfile
 
     from sdrmodem_tpu_torch.server.config import ServerConfig
@@ -1875,7 +1906,8 @@ def serve_rx(mode, requests, blocks, cumulative):
     need(ServerConfig().buffer_size == SERVER_BLOCK, f"the server's buffer_size is {ServerConfig().buffer_size}")
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as base:
-        return serve(base, {"demod_mode": mode}, requests, blocks, cumulative, timeout=900)
+        return serve(base, {"demod_mode": mode}, requests, blocks, cumulative, timeout=900,
+                     server_kw=server_kw)
 
 
 def path_server_exact(torch, dev):
@@ -1926,37 +1958,18 @@ def path_server_fast(torch, dev):
     direct run with the Doppler interpolated every 2000 samples (the
     goldens' cadence) must bring lane 0's first pass within +-2 LSB of the
     golden for 99.5% of its symbols."""
-    from sdrmodem_tpu_torch.dsp.doppler import Doppler
-    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
-    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
-    from sdrmodem_tpu_torch.server.session import BatchedRxGroup, doppler_from_settings
-    from sdrmodem_tpu_torch.utils.convert import doppler_tables_from_numpy, segment_tables
+    from sdrmodem_tpu_torch.server.session import BatchedRxGroup
     from sdrmodem_tpu_torch.utils.parity import golden_report
     from tests.torch_server_helpers import rx_request
 
-    b, c, fs = SERVER_BLOCK, BatchedRxGroup.LANES, LUCKY7[0]
+    b, c = SERVER_BLOCK, BatchedRxGroup.LANES
     need(c == LANES, f"the group has {c} lanes")
     iq = np.resize(np.fromfile(FIXTURES / "lucky7.cf32", np.complex64), SERVER_BLOCKS * b)
     blocks = [iq[t * b : (t + 1) * b] for t in range(SERVER_BLOCKS)]
     settings, starts = wire_doppler(), [PASS_START + k for k in range(c)]
-    pipe = DemodPipeline(FskDemodConfig(*LUCKY7), b, device=dev)
-    step = pipe.make_batched_step_full("pallas", doppler=True, layout="fanout")
 
     def run_direct(max_batch):
-        """Each lane's symbols a block from the step run directly, Doppler
-        rows interpolated every max_batch samples (None: once a block)."""
-        dops = {k: doppler_from_settings(settings, fs, DOPPLER["center_freq"], 0, s) for k, s in enumerate(starts)}
-        state, out = pipe.init_full_state(c), [[] for _ in range(c)]
-        for blk in blocks:
-            rows = {k: d.device_segments(b, +1, max_batch=max_batch) for k, d in dops.items()}
-            tables = doppler_tables_from_numpy(segment_tables(rows, Doppler.max_rows(b, fs, max_batch), c), c,
-                                               device=dev)
-            x = torch.from_numpy(np.stack([blk.real, blk.imag]).astype(np.float32)).to(dev)
-            state, sym, cnt = step(state, x, tables)
-            sym, cnt = sym.cpu().numpy(), cnt.cpu().numpy()
-            for k in range(c):
-                out[k].append(np.concatenate([sym[k, j, : cnt[k, j]] for j in range(cnt.shape[1])]))
-        return out
+        return fast_direct(torch, dev, blocks, settings, starts, c, max_batch)
 
     # the same step, blocks and settings at the goldens' 2000-sample Doppler
     # cadence: lane 0's first pass must meet the golden, as phase 3's does
@@ -2067,6 +2080,351 @@ def path_server_tx(torch, dev):
         f"a 2048-B TxData to its response: median {med:.4f} ms, p90 {p90:.4f}; {largest} B: median "
         f"{big[0]:.4f} ms [{card()}]")
     return dict(median_ms=med, p90_ms=p90, ms_32k=big[0]), counts
+
+
+SHARDS = 4  # shards of paths (m)-(o), every one on the one card
+SHARDED_LANES = SHARDS * LANES  # path (m)'s channels and path (o)'s group width
+RAGGED_SHARDS, RAGGED_CHANNELS = 2, 16  # path (m)'s ragged class
+RAGGED_SHORT = 12345  # samples the odd channels of path (m)'s ragged step lack
+TIME_STREAMS = 128  # path (n): streams x MAIN_BLOCK samples, over SHARDS
+GRID_CHANNELS, GRID_SAMPLES = 8, 1 << 19  # path (n)'s grid, 2 channel shards x 2 time shards
+# path (p): the JAX record's 16 streams x 32768 (MULTIHOST.json), 2 processes x 2 shards
+MULTIHOST_ARGS = ["--backend", "gloo", "--procs", "2", "--shards", "2", "--streams", "16",
+                  "--samples", "32768"]
+
+
+def lane_slice(torch, state, lo, hi):
+    """Lanes [lo, hi) of a DemodStateFull: both halves of the I/Q leaves."""
+    from sdrmodem_tpu_torch.dsp.clock_recovery import ClockFullState
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodStateFull
+
+    c = state.quad_prev.shape[1] // 2
+
+    def iq(t):
+        return torch.cat([t[:, lo:hi], t[:, c + lo : c + hi]], dim=1)
+
+    def lanes(t):
+        return None if t is None else t[..., lo:hi]
+
+    return DemodStateFull(iq(state.lpf1_hist), iq(state.quad_prev), lanes(state.lpf2_hist),
+                          lanes(state.dc_hist), ClockFullState(*(lanes(t) for t in state.clock)))
+
+
+def timed_ms(torch, fn):
+    """fn()'s result and its wall ms, the card idle before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def path_channel_sharded(torch, dev):
+    """(m) channel sharding at full width: ShardedChannelDemodFull over
+    SHARDS shards of the one card, SHARDED_LANES lanes (128 a shard) x
+    262144, the lucky7 capture on every lane (lane l from l x 2 blocks into
+    the tiled capture), two steps with the state carried.  Its symbols and
+    final state must equal the unsharded SHARDED_LANES-lane step's bit for
+    bit, each step timed beside it (one card: the cost of sharding, no
+    scaling).  Then ShardedChannelDemod over RAGGED_SHARDS shards, 16
+    channels x 262144, the odd channels RAGGED_SHORT samples short, equal
+    to the unsharded make_batched_step("pallas")."""
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.parallel.channels import ShardedChannelDemod, ShardedChannelDemodFull
+    from sdrmodem_tpu_torch.parallel.mesh import Mesh
+
+    cfg, b, c = FskDemodConfig(*LUCKY7), SERVER_BLOCK, SHARDED_LANES
+    x_tm = capture_lanes(torch, dev, 2 * b, c)
+    blocks = [torch.stack([x_tm[t * b : (t + 1) * b, :c].T, x_tm[t * b : (t + 1) * b, c:].T], dim=1).contiguous()
+              for t in range(2)]
+    del x_tm
+    sharded = ShardedChannelDemodFull(cfg, b, c, Mesh([dev] * SHARDS, "channel"))
+    shards = [[blk[i * sharded.local : (i + 1) * sharded.local] for i in range(SHARDS)] for blk in blocks]
+
+    def run_sharded():
+        state, outs, ms = sharded.init_state(), [], []
+        for x in shards:
+            (state, sym, cnt), t = timed_ms(torch, lambda: sharded.step(state, x))
+            outs.append((sym, cnt))
+            ms.append(t)
+        return state, outs, ms
+
+    (state, outs, ms), counts = counted(
+        torch, f"(m) ShardedChannelDemodFull, {SHARDS} shards x {sharded.local} lanes x {b}, 2 steps",
+        ("front_fused", "clock"), run_sharded, never=("step", "fir", "clock_ragged"))
+    pipe = DemodPipeline(cfg, b, device=dev)
+    step = pipe.make_batched_step_full()
+
+    def ref_step(state, blk):  # symbols to the host, as the sharded class gives them
+        state, sym, cnt = step(state, blk)
+        return state, sym.cpu(), cnt.cpu()
+
+    ref, ref_ms = pipe.init_full_state(c), []
+    for t, blk in enumerate(blocks):
+        (ref, sym, cnt), t_ms = timed_ms(torch, lambda: ref_step(ref, blk))
+        ref_ms.append(t_ms)
+        need(same_stream(torch, outs[t], (sym, cnt)), f"(m) step {t}: a lane's symbols differ from the unsharded step's")
+    for i, st in enumerate(state):
+        need(same_state(torch, st, lane_slice(torch, ref, i * sharded.local, (i + 1) * sharded.local)),
+             f"(m) shard {i}: its state differs from the unsharded step's lanes")
+    symbols = int(sum(cnt.sum().item() for _, cnt in outs))
+    # the card's share of a step: the same calls from a fresh state, no copy to the host, by CUDA events
+    shard_steps = [p.make_batched_step_full() for p in sharded.pipes]
+    fresh, ref_fresh = sharded.init_state(), pipe.init_full_state(c)
+    dev_ms, _ = cuda_ms(torch, lambda: [f(st, x) for f, st, x in zip(shard_steps, fresh, shards[1])], 3)
+    ref_dev_ms, _ = cuda_ms(torch, lambda: step(ref_fresh, blocks[1]), 3)
+
+    # the ragged class: B3 and B4 a shard
+    rag = ShardedChannelDemod(cfg, b, RAGGED_CHANNELS, Mesh([dev] * RAGGED_SHARDS, "channel"))
+    x = blocks[0][:RAGGED_CHANNELS]
+    n_valid = np.where(np.arange(RAGGED_CHANNELS) % 2, b - RAGGED_SHORT, b).astype(np.int32)
+    xr = [x[i * rag.local : (i + 1) * rag.local] for i in range(RAGGED_SHARDS)]
+    ((_, rsym, rcnt), rag_ms), rcounts = counted(
+        torch, f"(m) ShardedChannelDemod, {RAGGED_SHARDS} shards x {rag.local} channels x {b}, ragged",
+        ("fir", "clock_ragged"), lambda: timed_ms(torch, lambda: rag.step(rag.init_state(), xr, n_valid)),
+        never=("front_fused", "clock", "step"))
+    rpipe = DemodPipeline(cfg, b, device=dev)
+    (_, want, wcnt), rag_ref_ms = timed_ms(torch, lambda: rpipe.make_batched_step("pallas")(
+        rpipe.init_state(channels=RAGGED_CHANNELS), x, torch.from_numpy(n_valid).to(dev)))
+    need(torch.equal(rcnt, wcnt.cpu()) and torch.equal(rsym, want.cpu()),
+         "(m) ragged: the sharded class differs from the unsharded make_batched_step")
+    for k, v in rcounts.items():
+        counts[k] += v
+    log(f"[main] (m) channels over {SHARDS} shards of one card: {c} lanes x {b}, every lane's {symbols} "
+        f"symbols and the final state equal the unsharded step's bit for bit; ms a step, symbols to the "
+        f"host: sharded {json.dumps([round(m, 3) for m in ms])}, unsharded "
+        f"{json.dumps([round(m, 3) for m in ref_ms])}; the card's share (CUDA events, no copy to the host): "
+        f"sharded {dev_ms:.3f}, unsharded {ref_dev_ms:.3f}; ragged, {RAGGED_CHANNELS} channels over "
+        f"{RAGGED_SHARDS} shards: equal to make_batched_step, {rag_ms:.3f} ms against {rag_ref_ms:.3f} [{card()}]")
+    return dict(ms=ms, unsharded_ms=ref_ms, device_ms=dev_ms, unsharded_device_ms=ref_dev_ms, ragged_ms=rag_ms,
+                ragged_unsharded_ms=rag_ref_ms), counts
+
+
+def time_streams(n_streams, n):
+    """tests/test_parallel.py:158's streams: the corrected capture at
+    offsets 1024 apart, each with 0.01 of noise from seed 7, except stream
+    0, the capture as it is, which path (n) gates on the golden (the
+    capture's mean amplitude is 0.0024, so the noise buries the others)."""
+    iq = np.resize(np.fromfile(FIXTURES / "lucky7.expected.cf32", np.complex64), (n_streams - 1) * 1024 + n)
+    rng = np.random.default_rng(7)
+    streams = np.empty((n_streams, n), np.complex64)
+    streams[0] = iq[:n]
+    for s in range(1, n_streams):
+        streams[s] = iq[s * 1024 : s * 1024 + n]
+        streams[s].real += 0.01 * rng.standard_normal(n, dtype=np.float32)
+        streams[s].imag += 0.01 * rng.standard_normal(n, dtype=np.float32)
+    return streams
+
+
+def unsharded_streams(torch, dev, streams, block, dopplers=None):
+    """Each stream alone, as a lane of one batch, through the full-block
+    step (layout tm) at ``block``, with each lane's Doppler tables every
+    2000 samples where it has a corrector: every stream's symbols."""
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.parallel.time_shard import DOPPLER_CADENCE
+
+    s, n = streams.shape
+    pipe = DemodPipeline(FskDemodConfig(*LUCKY7), block, device=dev)
+    step = pipe.make_batched_step_full(doppler=True, layout="tm")
+    state, out = pipe.init_full_state(s), []
+    dops = {k: d for k, d in enumerate(dopplers or []) if d is not None}
+    for t in range(-(-n // block)):
+        part = np.zeros((s, block), np.complex64)
+        part[:, : min(block, n - t * block)] = streams[:, t * block : (t + 1) * block]
+        x = torch.from_numpy(np.ascontiguousarray(np.concatenate([part.real.T, part.imag.T], axis=1))).to(dev)
+        tables = doppler_tables(dops, block, s, dev, max_batch=DOPPLER_CADENCE) if dops else None
+        state, sym, cnt = step(state, x, tables)
+        out.append((sym.cpu().numpy(), cnt.cpu().numpy()))
+    return [np.concatenate([sym[k][np.arange(sym.shape[2])[None, :] < cnt[k][:, None]] for sym, cnt in out])
+            for k in range(s)]
+
+
+def path_time_sharded(torch, dev):
+    """(n) time sharding at full width: demod_pipelined over SHARDS shards
+    of the one card, TIME_STREAMS streams x 2^20 (block 262144): every
+    stream equal to the unsharded full-block step at block 262144 bit for
+    bit, stream 0's first pass within +-2 LSB of the golden with hard
+    decisions 1.0.  Then the raw lucky7 pass with its Doppler tables and a
+    pre-corrected stream without, on SHARDS shards (tests/test_parallel.py:288):
+    both equal the unsharded step fed the same tables and within +-2 LSB of
+    the golden.  Then demod_grid_sharded on 2 x 2 shards, GRID_CHANNELS x
+    GRID_SAMPLES, equal to the unsharded step."""
+    from sdrmodem_tpu_torch.dsp.doppler import Doppler
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.parallel.mesh import Mesh
+    from sdrmodem_tpu_torch.parallel.time_shard import demod_grid_sharded, demod_pipelined
+    from sdrmodem_tpu_torch.utils.parity import golden_report
+
+    cfg, n = FskDemodConfig(*LUCKY7), MAIN_BLOCK
+    golden = np.fromfile(FIXTURES / "lucky7.expected.s8", np.int8)
+    t0 = time.perf_counter()
+    streams = time_streams(TIME_STREAMS, n)
+    host_s = time.perf_counter() - t0
+    mesh = Mesh([dev] * SHARDS)
+    (outs, ms), counts = counted(
+        torch, f"(n) demod_pipelined, {TIME_STREAMS} streams x {n} over {SHARDS} shards",
+        ("front", "fir", "clock"), lambda: timed_ms(torch, lambda: demod_pipelined(streams, cfg, mesh)),
+        never=("front_fused", "step", "clock_ragged"))
+    ref = unsharded_streams(torch, dev, streams, n // SHARDS)
+    for s in range(TIME_STREAMS):
+        need(np.array_equal(outs[s], ref[s]), f"(n) stream {s}: differs from the unsharded step at {n // SHARDS}")
+    rep = golden_report(outs[0][: len(golden)], golden)
+    need(rep["symbols"] >= len(golden) and rep["max_lsb"] <= 2 and rep["hard_decision_agreement"] == 1.0,
+         f"(n) stream 0's first pass against the golden: {json.dumps(rep)}")
+
+    raw = np.fromfile(FIXTURES / "lucky7.cf32", np.complex64)
+    pre = np.fromfile(FIXTURES / "lucky7.expected.cf32", np.complex64)
+    nd = (len(raw) // (SHARDS * cfg.decimation)) * SHARDS * cfg.decimation
+    pair = np.stack([raw[:nd], pre[:nd]]).astype(np.complex64)
+
+    def dops():
+        return [Doppler(**DOPPLER, start_time_seconds=PASS_START), None]
+
+    dop_outs, c2 = counted(torch, f"(n) demod_pipelined, the raw pass with Doppler and a corrected lane, {SHARDS} shards",
+                           ("front", "fir", "clock"), lambda: demod_pipelined(pair, cfg, mesh, dopplers=dops()),
+                           never=("front_fused", "step", "clock_ragged"))
+    dop_ref = unsharded_streams(torch, dev, pair, nd // SHARDS, dopplers=dops())
+    dop_reps = []
+    for s in range(2):
+        need(np.array_equal(dop_outs[s], dop_ref[s]), f"(n) Doppler stream {s}: differs from the unsharded step")
+        r = golden_report(dop_outs[s][: len(golden)], golden)
+        need(r["symbols"] >= len(golden) - 2 and r["max_lsb"] <= 2 and r["hard_decision_agreement"] == 1.0,
+             f"(n) Doppler stream {s} against the golden: {json.dumps(r)}")
+        dop_reps.append(r)
+
+    grid_in = streams[:GRID_CHANNELS, :GRID_SAMPLES]
+    meshes = [Mesh([dev] * 2), Mesh([dev] * 2)]
+    grid, c3 = counted(torch, f"(n) demod_grid_sharded, {GRID_CHANNELS} channels x {GRID_SAMPLES} on 2 x 2 shards",
+                       ("front", "fir", "clock"), lambda: demod_grid_sharded(grid_in, cfg, meshes),
+                       never=("front_fused", "step", "clock_ragged"))
+    grid_ref = unsharded_streams(torch, dev, grid_in, GRID_SAMPLES // 2)
+    for ch in range(GRID_CHANNELS):
+        need(np.array_equal(grid[ch], grid_ref[ch]), f"(n) grid channel {ch}: differs from the unsharded step")
+    for part in (c2, c3):
+        for k, v in part.items():
+            counts[k] += v
+    log(f"[main] (n) time over {SHARDS} shards of one card: {TIME_STREAMS} streams x {n}, every stream's "
+        f"symbols ({sum(len(o) for o in outs)}) equal to the unsharded step at {n // SHARDS} bit for bit, "
+        f"{ms:.3f} ms host to host (the streams' host staging {host_s:.3f} s before it); stream 0 against "
+        f"the golden {json.dumps(rep)}; the raw pass with Doppler and the corrected lane {json.dumps(dop_reps)}; "
+        f"the 2 x 2 grid equal to the unsharded step [{card()}]")
+    return dict(ms=ms, golden=rep, doppler=dop_reps), counts
+
+
+def path_server_mesh(torch, dev):
+    """(o) the server with its fast group's lanes sharded: LANES =
+    SHARDED_LANES, SdrModemServer(devices=[card] * SHARDS), the clients and
+    blocks of path (k).  Every client's bytes must equal the unsharded
+    SHARDED_LANES-lane step run directly with the same tables (what the
+    one-device group runs); B2 launches once a shard a block."""
+    from sdrmodem_tpu_torch.server.session import BatchedRxGroup
+    from tests.torch_server_helpers import rx_request
+
+    b, c = SERVER_BLOCK, LANES
+    iq = np.resize(np.fromfile(FIXTURES / "lucky7.cf32", np.complex64), SERVER_BLOCKS * b)
+    blocks = [iq[t * b : (t + 1) * b] for t in range(SERVER_BLOCKS)]
+    settings, starts = wire_doppler(), [PASS_START + k for k in range(c)]
+    direct = fast_direct(torch, dev, blocks, settings, starts, SHARDED_LANES, None)
+    cumulative = [np.cumsum([len(d) for d in lane]) for lane in direct]
+    requests = [rx_request(settings, s) for s in starts]
+    lanes = BatchedRxGroup.LANES
+    BatchedRxGroup.LANES = SHARDED_LANES
+    try:
+        (got, ms, where), counts = counted(
+            torch, f"(o) server, fast, {SHARDED_LANES} lanes over {SHARDS} shards, {c} clients x "
+            f"{SERVER_BLOCKS} blocks of {b}", ("front_fused", "clock"),
+            lambda: serve_rx("fast", requests, blocks, cumulative, devices=[dev] * SHARDS),
+            never=("step", "fir", "clock_ragged", "fir_exact"))
+    finally:
+        BatchedRxGroup.LANES = lanes
+    need(counts["clock"] == SHARDS * SERVER_BLOCKS, f"(o): {counts['clock']} B2 launches, "
+         f"{SHARDS * SERVER_BLOCKS} expected (one a shard a block)")
+    need([lane for lane, _ in where] == list(range(c)), "(o): client k is not lane k")
+    for k, g in enumerate(got):
+        need(np.array_equal(g, np.concatenate(direct[k])), f"(o) lane {k}: bytes differ from the unsharded step's")
+    log(f"[main] (o) server, fast, {SHARDED_LANES} lanes over {SHARDS} shards: all {c} clients' bytes equal "
+        f"the unsharded {SHARDED_LANES}-lane step's bit for bit; ms a block of {b} from the mock to the "
+        f"last lane's last symbol: {json.dumps([round(x, 3) for x in ms])}, median {np.median(ms):.3f} [{card()}]")
+    return dict(ms_blocks=ms, median_ms=float(np.median(ms))), counts
+
+
+def path_multihost(torch, dev):
+    """(p) several processes: ``python -m sdrmodem_tpu_torch.tools.multihost``
+    with MULTIHOST_ARGS on the card (gloo: every hop staged through host
+    memory), which must find 0 symbols differing from the one-process run.
+    Its kernels launch in its own processes, outside this one's counts."""
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as base:
+        out = pathlib.Path(base) / "multihost.json"
+        t0 = time.perf_counter()
+        # its own session, so a timeout here stops the tool's workers with it
+        proc = subprocess.Popen([sys.executable, "-m", "sdrmodem_tpu_torch.tools.multihost", *MULTIHOST_ARGS,
+                                 "--out", str(out), "--timeout", "300"],
+                                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            _, err = proc.communicate(timeout=420)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        wall = time.perf_counter() - t0
+        need(proc.returncode == 0 and out.exists(), f"(p) multihost exited {proc.returncode}: {err[-2000:]}")
+        record = json.loads(out.read_text())
+    need(record["ok"] and record["mismatched_symbols"] == 0 and record["symbols_compared"] > 0,
+         f"(p) {record['mismatched_symbols']} of {record['symbols_compared']} symbols differ across processes")
+    log(f"[main] (p) {json.dumps(record)}; {wall:.3f} s in all, three processes started")
+    return record
+
+
+def path_parity(torch, dev):
+    """(q) the parity tool, both modes, gated: every fixture within the
+    reference's bound (beyond_tol_rate 0, hard decisions 1.0) on the
+    production step (B1, B2) and the exact streamer (the float64 FIR, B4)."""
+    from sdrmodem_tpu_torch.tools import parity
+
+    report, counts = counted(torch, "(q) parity tool, --mode both", ("front_fused", "clock", "fir_exact", "clock_ragged"),
+                             lambda: parity.run(modes=("production", "exact"), device=dev))
+    summary = {mode: {name: [r["max_lsb_diff"], r["beyond_tol_rate"], r["hard_decision_agreement"]]
+                      for name, r in report[key].items()}
+               for mode, key in (("production", "fixtures"), ("exact", "fixtures_exact"))}
+    log(f"[main] (q) parity, fixture: [max LSB, beyond +-2 LSB, hard decisions]: {json.dumps(summary)}; "
+        f"gates {json.dumps([report['gate'], report['gate_exact']])} [{card()}]")
+    need(report["gate"]["pass"] and report["gate_exact"]["pass"],
+         f"(q) the parity gate failed: {report['gate']['failures'] + report['gate_exact']['failures']}")
+    return report, counts
+
+
+def fast_direct(torch, dev, blocks, settings, starts, lanes, max_batch):
+    """Each client's symbols a block from the server's step run directly at
+    ``lanes`` lanes, client k on lane k with the Doppler of
+    doppler_from_settings(settings, ..., starts[k]), its rows every
+    ``max_batch`` samples (None: once a block, as the group steps them)."""
+    from sdrmodem_tpu_torch.dsp.doppler import Doppler
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.server.session import doppler_from_settings
+    from sdrmodem_tpu_torch.utils.convert import doppler_tables_from_numpy, segment_tables
+
+    b, fs = len(blocks[0]), LUCKY7[0]
+    pipe = DemodPipeline(FskDemodConfig(*LUCKY7), b, device=dev)
+    step = pipe.make_batched_step_full("pallas", doppler=True, layout="fanout")
+    dops = {k: doppler_from_settings(settings, fs, DOPPLER["center_freq"], 0, s) for k, s in enumerate(starts)}
+    state, out = pipe.init_full_state(lanes), [[] for _ in starts]
+    for blk in blocks:
+        rows = {k: d.device_segments(b, +1, max_batch=max_batch) for k, d in dops.items()}
+        tables = doppler_tables_from_numpy(segment_tables(rows, Doppler.max_rows(b, fs, max_batch), lanes), lanes,
+                                           device=dev)
+        x = torch.from_numpy(np.stack([blk.real, blk.imag]).astype(np.float32)).to(dev)
+        state, sym, cnt = step(state, x, tables)
+        sym, cnt = sym.cpu().numpy(), cnt.cpu().numpy()
+        for k in range(len(starts)):
+            out[k].append(np.concatenate([sym[k, j, : cnt[k, j]] for j in range(cnt.shape[1])]))
+    return out
 
 
 def ragged_clock_cost(c, w, k, symbols):

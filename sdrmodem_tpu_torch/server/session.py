@@ -12,8 +12,10 @@ src/dsp_worker.c, src/sdr_worker.c).
   with a synchronous ack (src/tcp_server.c:176-241).
 
 The port of ``sdrmodem_tpu/server/session.py`` onto the port's DSP.  Every
-session and group runs on the one device the server hands it
-(``dsp_device`` / ``device``; CUDA when None, raising without a card):
+session and group runs on the device the server hands it (``dsp_device``
+/ ``device``; CUDA when None, raising without a card), a fast-mode group's
+lanes sharded over ``devices`` where the server names several (or
+SDRM_SERVER_MESH picks them):
 exact clients on ``DemodPipeline(..., exact=True).streamer()`` (the
 float64 FIR kernel and B4), fast-mode groups on
 ``make_batched_step_full("pallas", doppler=True, layout="fanout")`` (B1
@@ -324,6 +326,13 @@ class RxSession:
             await self.task
 
 
+def mesh_shards(lanes: int, visible: int) -> int:
+    """SDRM_SERVER_MESH's rule: the most of ``visible`` devices that divide
+    ``lanes`` into multiples of 128 (each shard keeps whole 128-lane
+    granules, as the JAX package's does), 1 where none do."""
+    return next((n for n in range(visible, 1, -1) if lanes % n == 0 and (lanes // n) % 128 == 0), 1)
+
+
 class BatchedRxGroup:
     """All fast-mode clients of one SDR stream that share a demod
     signature, batched as lanes of ONE full-block step.
@@ -337,7 +346,17 @@ class BatchedRxGroup:
 
     ``LANES`` (SDRM_SERVER_LANES, default 128, rounded up to a multiple of
     128): the clients-per-step capacity.  The clock kernel runs one thread
-    block a lane, so wider groups serve more clients a step."""
+    block a lane, so wider groups serve more clients a step.
+
+    The lanes may be sharded over several devices (the JAX package's
+    SDRM_SERVER_MESH, ``sdrmodem_tpu/server/session.py:367-417``): each
+    shard a run of LANES / n lanes, a multiple of 128, with its own
+    pipeline, step and state on its device.  ``devices`` names the shards'
+    devices (a device may repeat); without it, SDRM_SERVER_MESH on a CUDA
+    group takes the most visible cards that divide LANES into multiples of
+    128, as JAX takes ``jax.devices()``, and otherwise the group runs on
+    ``device`` alone.  Every shard steps the one shared stream and its own
+    lanes' Doppler rows; no collective is needed."""
 
     LANES = max(128, -(-int(os.environ.get("SDRM_SERVER_LANES", "128")) // 128) * 128)
 
@@ -349,6 +368,7 @@ class BatchedRxGroup:
         blocking: bool = False,
         queue_capacity: int | None = None,
         device=None,
+        devices=None,
     ):
         self.fsk_config = fsk_config
         self.block = block
@@ -367,19 +387,28 @@ class BatchedRxGroup:
         self.queue = BufferQueue(queue_capacity, blocking)
         self._worker_task: asyncio.Task | None = None
         self.blocks_processed = 0
-        # the reference's atan LUT, read by gather in the front kernel
-        self.pipe = DemodPipeline(fsk_config, block, exact=False, use_atan_lut=True,
-                                  device=device)
+        self.devices = self._shard_devices(resolve_device(device), devices)
+        self.local = self.LANES // len(self.devices)  # lanes a shard
+        # the reference's atan LUT, read by gather in the front kernel; one
+        # pipeline a shard, its taps and tables on the shard's device
+        self.pipes = [
+            DemodPipeline(fsk_config, block, exact=False, use_atan_lut=True, device=d)
+            for d in self.devices
+        ]
+        self.pipe = self.pipes[0]
         self.device = self.pipe.device
         # "fanout": the step takes the ONE shared (2, block) stream and
         # broadcasts it to the lanes on the device — no per-lane host copies
         # (the group exists precisely because every lane demodulates the
         # same SDR stream)
-        self._step = self._build_step()
+        self._steps = self._build_step()
         # device-side Doppler: S piecewise-linear phase rows per block
         # (host keeps the 1 Hz SGP4 bookkeeping; Doppler.device_segments)
         self.dop_rows = Doppler.max_rows(block, fsk_config.sampling_freq)
-        self.state = self.pipe.init_full_state(self.LANES)
+        # one DemodStateFull, or with several shards a tuple of them, shard
+        # i holding lanes [i * local, (i + 1) * local)
+        shard_states = tuple(p.init_full_state(self.local) for p in self.pipes)
+        self.state = shard_states if self.sharded else shard_states[0]
         self._init_state_template = self.pipe.init_full_state(1)
         self.lanes: dict[int, RxSession] = {}
         # lanes whose state must be zeroed before the NEXT step: attach()
@@ -395,20 +424,31 @@ class BatchedRxGroup:
         # no window to overflow, so they stay 0)
         self._overflow_prev = np.zeros(self.LANES, np.float32)
 
-    def _build_step(self):
-        """The batched fanout step on the group's one device.
+    @property
+    def sharded(self) -> bool:
+        return len(self.devices) > 1
 
-        SDRM_SERVER_MESH (the JAX package's lane sharding over several
-        devices) is not ported: with it set and more than one CUDA device
-        visible this raises rather than quietly use one of them."""
-        mesh_env = os.environ.get("SDRM_SERVER_MESH", "0")
-        if mesh_env not in ("0", "", "off") and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                "SDRM_SERVER_MESH: sharding a group's lanes over "
-                f"{torch.cuda.device_count()} CUDA devices is not ported (ROADMAP A5); "
-                "unset it, or make one device visible"
-            )
-        return self.pipe.make_batched_step_full("pallas", doppler=True, layout="fanout")
+    def _shard_devices(self, device, devices) -> list:
+        """The shards' devices: ``devices`` as given (each shard a multiple
+        of 128 lanes, else ``ValueError``), or SDRM_SERVER_MESH's choice,
+        or ``device`` alone."""
+        if devices is None:
+            if os.environ.get("SDRM_SERVER_MESH", "0") in ("0", "", "off") or device.type != "cuda":
+                return [device]
+            n_use = mesh_shards(self.LANES, torch.cuda.device_count())
+            devices = [torch.device("cuda", i) for i in range(n_use)]
+        devices = [resolve_device(d) for d in devices]
+        n = len(devices)
+        if n < 1 or self.LANES % n or (self.LANES // n) % 128:
+            raise ValueError(f"{self.LANES} lanes do not split over {n} devices in multiples of 128")
+        if n > 1:
+            log.info("rx group sharding %d lanes over %d devices: %s", self.LANES, n,
+                     ", ".join(map(str, devices)))
+        return devices
+
+    def _build_step(self) -> list:
+        """The batched fanout step of each shard, on its device."""
+        return [p.make_batched_step_full("pallas", doppler=True, layout="fanout") for p in self.pipes]
 
     def has_space(self) -> bool:
         return len(self.lanes) < self.LANES
@@ -428,9 +468,19 @@ class BatchedRxGroup:
 
     def _reset_lane(self, lane: int):
         """Fresh per-lane stream state (a new client starts from zero
-        history, like a freshly created dsp_worker).  Every leaf is a new
-        tensor: the template and a step's inputs are never written."""
-        cp = self.state.quad_prev.shape[1] // 2
+        history, like a freshly created dsp_worker), in the one shard that
+        holds the lane.  Every leaf is a new tensor: the template and a
+        step's inputs are never written."""
+        if not self.sharded:
+            self.state = self._reset_in(self.state, lane)
+            return
+        shard, local = divmod(lane, self.local)
+        states = list(self.state)
+        states[shard] = self._reset_in(states[shard], local)
+        self.state = tuple(states)
+
+    def _reset_in(self, state: DemodStateFull, lane: int) -> DemodStateFull:
+        cp = state.quad_prev.shape[1] // 2
 
         def reset(leaf, init):
             if leaf is None:
@@ -446,9 +496,9 @@ class BatchedRxGroup:
             return leaf
 
         init = self._init_state_template
-        front = [reset(a, b) for a, b in zip(self.state[:4], init[:4])]
-        clock = ClockFullState(*(reset(a, b) for a, b in zip(self.state.clock, init.clock)))
-        self.state = DemodStateFull(*front, clock)
+        front = [reset(a, b) for a, b in zip(state[:4], init[:4])]
+        clock = ClockFullState(*(reset(a, b) for a, b in zip(state.clock, init.clock)))
+        return DemodStateFull(*front, clock)
 
     async def feed(self, buf: np.ndarray):
         """Accumulate a stream buffer; enqueue every filled block for the
@@ -548,26 +598,36 @@ class BatchedRxGroup:
                 await s.emit(np.concatenate(parts))
 
     def _step_host(self, x: np.ndarray, dop):
-        """One step on the device: (state', symbols (C, n_chunks, K) int8,
-        counts (C, n_chunks) int32, overflow (C,) float32), numpy out."""
-        state, symbols, counts = self._step(
-            self.state,
-            torch.from_numpy(x).to(self.device),
-            doppler_tables_from_numpy(dop, self.LANES, device=self.device),
-        )
-        # np.array (copy): _overflow_prev is written in place on lane resets
-        overflow = np.array(state.clock.overflow.cpu(), np.float32)
-        return state, symbols.cpu().numpy(), counts.cpu().numpy(), overflow
+        """One step on the devices: (state', symbols (C, n_chunks, K) int8,
+        counts (C, n_chunks) int32, overflow (C,) float32), numpy out.  Each
+        shard steps the shared block and its lanes' Doppler rows on its
+        device; its outputs come back in one host copy each."""
+        states = self.state if self.sharded else (self.state,)
+        xs = {}
+        outs = []
+        for i, (step, state, dev) in enumerate(zip(self._steps, states, self.devices)):
+            if dev not in xs:
+                xs[dev] = torch.from_numpy(x).to(dev)
+            lanes = slice(i * self.local, (i + 1) * self.local)
+            outs.append(step(state, xs[dev], doppler_tables_from_numpy(
+                tuple(t[:, lanes] for t in dop), self.local, device=dev)))
+        new = tuple(o[0] for o in outs)
+        symbols = np.concatenate([o[1].cpu().numpy() for o in outs])
+        counts = np.concatenate([o[2].cpu().numpy() for o in outs])
+        # np.concatenate copies: _overflow_prev is written in place on lane resets
+        overflow = np.concatenate([s.clock.overflow.cpu().numpy() for s in new]).astype(np.float32)
+        return (new if self.sharded else new[0]), symbols, counts, overflow
 
 
 class SdrStream:
     """One reader per distinct SDR stream, fanning out to sessions
     (sdr_worker analog)."""
 
-    def __init__(self, stream_id: int, key: RxKey, device: SdrDevice):
+    def __init__(self, stream_id: int, key: RxKey, device: SdrDevice, *, group_devices=None):
         self.id = stream_id
         self.key = key
         self.device = device
+        self.group_devices = group_devices  # the devices a fast group's lanes shard over
         self.sessions: list[RxSession] = []
         self.groups: list[BatchedRxGroup] = []  # fast-mode lane batches
         self.task: asyncio.Task | None = None
@@ -595,6 +655,7 @@ class SdrStream:
                 blocking=self.device.lossless_rx,
                 queue_capacity=session.config.queue_size,
                 device=session.dsp_device,
+                devices=self.group_devices,
             )
             group.attach(session)
             self.groups.append(group)

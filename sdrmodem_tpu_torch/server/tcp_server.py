@@ -8,7 +8,9 @@ sdr-modem clients (and the reference's own test client) work unchanged.
 
 The port of ``sdrmodem_tpu/server/tcp_server.py``.  The server runs its DSP
 on one device, chosen when it starts (``--device``, CUDA by default); it
-raises without a card rather than fall back to the CPU.  Run it with
+raises without a card rather than fall back to the CPU.  A fast-mode
+group's lanes shard over ``devices`` when the server is given them, or
+over the cards SDRM_SERVER_MESH picks (``session.py:BatchedRxGroup``).  Run it with
 ``python -m sdrmodem_tpu_torch.server <config> [--device cpu]``.
 """
 
@@ -96,9 +98,11 @@ def server_device(device=None):
 
 
 class SdrModemServer:
-    def __init__(self, config: ServerConfig, device=None):
+    def __init__(self, config: ServerConfig, device=None, devices=None):
         self.config = config
         self.device = server_device(device)
+        # a fast-mode group's lanes sharded over these (BatchedRxGroup)
+        self.devices = None if devices is None else [server_device(d) for d in devices]
         self.client_counter = 0
         self.streams: list[SdrStream] = []
         self.tx_initialized = False
@@ -255,7 +259,7 @@ class SdrModemServer:
         else:
             return wire.ResponseDetails.INTERNAL_ERROR
 
-        stream = SdrStream(client_id, key, device)
+        stream = SdrStream(client_id, key, device, group_devices=self.devices)
         self.streams.append(stream)
         stream.start()
         return stream

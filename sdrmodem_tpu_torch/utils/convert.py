@@ -9,6 +9,9 @@
   ``DemodStateFull``.  The JAX state and Doppler tables pad their lanes to
   a multiple of 128 (I lanes in [0, Cp), Q lanes in [Cp, 2Cp)); the port
   keeps exactly C lanes.
+- ``sharded_state_to_numpy`` / ``sharded_state_from_numpy``: the
+  per-shard states of ``parallel/channels.py``'s classes against the JAX
+  classes' one global state.
 
 These functions take and give numpy arrays in the JAX layout, so neither
 side needs the other's framework.  Like the pipeline, they put tensors on
@@ -181,3 +184,40 @@ def full_state_to_numpy(state: DemodStateFull) -> NumpyDemodStateFull:
             overflow=np.pad(a(ck.overflow), (0, pad)),
         ),
     )
+
+
+def _zip_map(fn, trees):
+    """fn over the matching leaves of numpy trees of one structure (None
+    kept), as the first tree's types."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple):
+        parts = [_zip_map(fn, [t[i] for t in trees]) for i in range(len(first))]
+        return type(first)(*parts) if hasattr(first, "_fields") else type(first)(parts)
+    return fn([np.asarray(t) for t in trees])
+
+
+def sharded_state_to_numpy(states: list):
+    """A sharded class's per-shard states (``parallel/channels.py``) as the
+    JAX class's global state, numpy leaves: ``DemodStateFull`` leaves
+    channel-last, each shard's lanes padded to a multiple of 128 (the JAX
+    class's per-shard ``init_full_state``) and the shards side by side;
+    ragged ``DemodState`` leaves led by the global channels."""
+    if isinstance(states[0], DemodStateFull):
+        return _zip_map(lambda a: np.concatenate(a, axis=-1), [full_state_to_numpy(s) for s in states])
+    return _zip_map(lambda a: np.concatenate(a, axis=0), [state_to_numpy(s) for s in states])
+
+
+def sharded_state_from_numpy(state, devices: list, channels: int) -> list:
+    """The JAX sharded class's global state (numpy leaves) as the port's
+    per-shard states, one on each of ``devices``, for ``channels`` channels
+    in all (equal runs a shard)."""
+    n = len(devices)
+    if channels % n:
+        raise ValueError(f"{channels} channels do not divide over {n} shards")
+    if hasattr(state, "lpf1_hist"):  # full-block: split the last axis
+        parts = [_zip_map(lambda a, i=i: np.split(a[0], n, axis=-1)[i], [state]) for i in range(n)]
+        return [full_state_from_numpy(p, channels // n, device=d) for p, d in zip(parts, devices)]
+    parts = [_zip_map(lambda a, i=i: np.split(a[0], n, axis=0)[i], [state]) for i in range(n)]
+    return [state_from_numpy(p, device=d) for p, d in zip(parts, devices)]

@@ -26,9 +26,13 @@ GOLDEN_CASES = [
 
 
 def demod_capture(pipe: DemodPipeline, iq: np.ndarray, front: str = "fused") -> np.ndarray:
-    """One channel of complex64 IQ through the full-block step (layout
-    "tm", the given ``front``), zero-padded to whole blocks; returns its
-    int8 symbols."""
+    """One channel of complex64 IQ through the pipeline; returns its int8
+    symbols.  The full-block step (layout "tm", the given ``front``),
+    zero-padded to whole blocks; with ``pipe.exact`` the exact streamer
+    (the float64-accumulated FIRs and the ragged clock) over the capture as
+    it is, the last block passed with its true length."""
+    if pipe.exact:
+        return pipe.streamer().process(iq)
     block = pipe.block
     padded = np.zeros(-(-len(iq) // block) * block, np.complex64)
     padded[: len(iq)] = iq

@@ -26,7 +26,10 @@ in the same order, at any number of B4's staged rows a slot.  The exact streamer
 gives on the CPU.  The fused step (B7) runs the front's and the clock's
 device code in their order: bit for bit against its plain version without
 Doppler, and against the fused front (B1) followed by B2 with and without
-it (the same symbol stream, chunked otherwise, and the same state).
+it (the same symbol stream, chunked otherwise, and the same state).  On
+shards of the card (``parallel/``, the server's sharded group) every
+sharded result equals the unsharded step's bit for bit: the same kernels on
+the same rows, the histories handed between shards.
 """
 
 import numpy as np
@@ -1141,5 +1144,158 @@ def test_server_exact_client_and_fast_group_equal_direct_calls(cuda, tmp_path):
     assert front_ops.fused_launches > n0[0] and clock_ops.launches > n0[1]
     assert step_ops.launches == n0[2]
     assert where == [(k, "cuda") for k in range(4)]  # client k is lane k of the direct run
+    for k, g in enumerate(got):
+        np.testing.assert_array_equal(g, want[k], err_msg=f"client {k}")
+
+
+def _lane_streams(sym, cnt):
+    """Each lane's symbols of a (C, n_chunks, K) step, its chunks joined."""
+    sym, cnt = np.asarray(sym), np.asarray(cnt)
+    valid = np.arange(sym.shape[2])[None, None, :] < cnt[:, :, None]
+    return [sym[k][valid[k]] for k in range(sym.shape[0])]
+
+
+def _unsharded(dev, streams, block, dopplers=None):
+    """Each stream as a lane of one batch through the full-block step at
+    ``block``, Doppler rows every 2000 samples where a lane has them."""
+    from sdrmodem_tpu_torch.parallel.time_shard import DOPPLER_CADENCE
+
+    s, n = streams.shape
+    pipe = DemodPipeline(FskDemodConfig(*CONFIGS["lucky7"]), block, device=dev)
+    step = pipe.make_batched_step_full(doppler=True)
+    state, out = pipe.init_full_state(s), [[] for _ in range(s)]
+    dops = {k: d for k, d in enumerate(dopplers or []) if d is not None}
+    for t in range(n // block):
+        part = streams[:, t * block : (t + 1) * block]
+        x = torch.from_numpy(np.stack([part.real, part.imag], axis=1).astype(np.float32)).to(dev)
+        tables = None
+        if dops:
+            rows = {k: d.device_segments(block, +1, max_batch=DOPPLER_CADENCE) for k, d in dops.items()}
+            tables = doppler_tables_from_numpy(
+                segment_tables(rows, Doppler.max_rows(block, 48000, DOPPLER_CADENCE), s), s, device=dev)
+        state, sym, cnt = step(state, x, tables)
+        for k, lane in enumerate(_lane_streams(sym.cpu(), cnt.cpu())):
+            out[k].append(lane)
+    return state, [np.concatenate(o) for o in out]
+
+
+@pytest.mark.cuda
+def test_sharded_channel_classes_on_card(cuda):
+    """ShardedChannelDemodFull over two shards of the card (B1 and B2 a
+    shard) equals the unsharded step, symbols and state, bit for bit; the
+    ragged class (B3 and B4 a shard) equals make_batched_step("pallas")."""
+    import pathlib
+
+    from sdrmodem_tpu_torch.parallel.channels import ShardedChannelDemod, ShardedChannelDemodFull
+    from sdrmodem_tpu_torch.parallel.mesh import Mesh
+
+    cfg, block, c = FskDemodConfig(*CONFIGS["lucky7"]), 8192, 8
+    iq = np.fromfile(pathlib.Path(__file__).resolve().parent / "fixtures" / "lucky7.expected.cf32", np.complex64)
+    streams = np.stack([iq[k * 1000 : k * 1000 + 2 * block] for k in range(c)])
+    sharded = ShardedChannelDemodFull(cfg, block, c, Mesh([cuda] * 2, "channel"))
+    n0 = (front_ops.fused_launches, clock_ops.launches)
+    state, got = sharded.init_state(), [[] for _ in range(c)]
+    for t in range(2):
+        state, sym, cnt = sharded.step(state, sharded.place_input(streams[:, t * block : (t + 1) * block]))
+        for k, lane in enumerate(_lane_streams(sym, cnt)):
+            got[k].append(lane)
+    assert front_ops.fused_launches >= n0[0] + 4 and clock_ops.launches == n0[1] + 4
+    ref_state, want = _unsharded(cuda, streams, block)
+    for k in range(c):
+        np.testing.assert_array_equal(np.concatenate(got[k]), want[k], err_msg=f"lane {k}")
+    for i, st in enumerate(state):
+        lo, hi = 4 * i, 4 * i + 4
+        assert torch.equal(st.lpf1_hist, torch.cat([ref_state.lpf1_hist[:, lo:hi], ref_state.lpf1_hist[:, c + lo : c + hi]], 1))
+        assert torch.equal(st.dc_hist, ref_state.dc_hist[:, lo:hi])
+        for a, b in zip(st.clock, ref_state.clock):
+            assert torch.equal(a, b[..., lo:hi])
+
+    rag = ShardedChannelDemod(cfg, block, 4, Mesh([cuda] * 2, "channel"))
+    n_valid = np.array([block, block - 123, block, 77], np.int32)
+    n0 = (fir_ops.launches, clock_ops.ragged_launches)
+    _, sym, cnt = rag.step(rag.init_state(), rag.place_input(streams[:4, :block]), n_valid)
+    assert fir_ops.launches > n0[0] and clock_ops.ragged_launches > n0[1]
+    pipe = DemodPipeline(cfg, block, device=cuda)
+    x = torch.from_numpy(np.stack([streams[:4, :block].real, streams[:4, :block].imag], axis=1)).to(cuda)
+    _, wsym, wcnt = pipe.make_batched_step("pallas")(pipe.init_state(channels=4), x.float(),
+                                                     torch.from_numpy(n_valid).to(cuda))
+    assert torch.equal(cnt, wcnt.cpu()) and torch.equal(sym, wsym.cpu())
+
+
+@pytest.mark.cuda
+def test_time_sharded_on_card(cuda):
+    """demod_pipelined over four shards of the card: every stream equals
+    the unsharded step at block N / 4 bit for bit, with Doppler tables on
+    the raw pass too; the 2 x 2 grid equals it as well.  B3 and B2 launch."""
+    import pathlib
+
+    from sdrmodem_tpu_torch.parallel.mesh import Mesh
+    from sdrmodem_tpu_torch.parallel.time_shard import demod_grid_sharded, demod_pipelined
+
+    cfg = FskDemodConfig(*CONFIGS["lucky7"])
+    fixtures = pathlib.Path(__file__).resolve().parent / "fixtures"
+    iq = np.fromfile(fixtures / "lucky7.expected.cf32", np.complex64)
+    rng = np.random.default_rng(7)
+    n = 32768
+    streams = np.stack([iq[s * 1024 : s * 1024 + n] + 0.001 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                        for s in range(10)]).astype(np.complex64)
+    n0 = (fir_ops.launches, clock_ops.launches)
+    outs = demod_pipelined(streams, cfg, Mesh([cuda] * 4))
+    assert fir_ops.launches >= n0[0] + 12 and clock_ops.launches >= n0[1] + 16
+    _, ref = _unsharded(cuda, streams, n // 4)
+    for s in range(10):
+        np.testing.assert_array_equal(outs[s], ref[s], err_msg=f"stream {s}")
+
+    raw = np.fromfile(fixtures / "lucky7.cf32", np.complex64)[:96000]
+    pair = np.stack([raw, iq[:96000]]).astype(np.complex64)
+    dop = [Doppler(**DOPPLER), None]
+    outs = demod_pipelined(pair, cfg, Mesh([cuda] * 4), dopplers=dop)
+    _, ref = _unsharded(cuda, pair, 24000, dopplers=[Doppler(**DOPPLER), None])
+    for s in range(2):
+        np.testing.assert_array_equal(outs[s], ref[s], err_msg=f"Doppler stream {s}")
+
+    grid = demod_grid_sharded(streams[:4], cfg, [Mesh([cuda] * 2), Mesh([cuda] * 2)])
+    _, ref = _unsharded(cuda, streams[:4], n // 2)
+    for ch in range(4):
+        np.testing.assert_array_equal(grid[ch], ref[ch], err_msg=f"grid channel {ch}")
+
+
+@pytest.mark.cuda
+def test_server_mesh_group_on_card(cuda, tmp_path, monkeypatch):
+    """The server's fast group with its 256 lanes over two shards of the
+    card: four clients with their own Doppler passes get the bytes of the
+    unsharded 256-lane step run directly, and B2 launches once a shard a
+    block."""
+    import pathlib
+
+    from sdrmodem_tpu_torch.server import wire
+    from sdrmodem_tpu_torch.server.session import BatchedRxGroup, doppler_from_settings
+    from tests.torch_server_helpers import rx_request, serve_rx
+
+    monkeypatch.setattr(BatchedRxGroup, "LANES", 256)
+    cfg, block, c = FskDemodConfig(*CONFIGS["lucky7"]), 8192, 256
+    raw = np.fromfile(pathlib.Path(__file__).resolve().parent / "fixtures" / "lucky7.cf32", np.complex64)[: 4 * block]
+    settings = wire.DopplerSettings(tle=DOPPLER["tle_lines"], latitude=537200000, longitude=475700000, altitude=0)
+    starts = [DOPPLER["start_time_seconds"] + k for k in range(4)]
+    pipe = DemodPipeline(cfg, block, device=cuda)
+    step = pipe.make_batched_step_full("pallas", doppler=True, layout="fanout")
+    state = pipe.init_full_state(c)
+    dops = [doppler_from_settings(settings, 48000, 437525000, 0, s) for s in starts]
+    want = [[] for _ in dops]
+    for t in range(4):
+        blk = raw[t * block : (t + 1) * block]
+        x = torch.from_numpy(np.stack([blk.real, blk.imag]).astype(np.float32)).to(cuda)
+        rows = {k: d.device_segments(block, +1) for k, d in enumerate(dops)}
+        tables = doppler_tables_from_numpy(segment_tables(rows, Doppler.max_rows(block, 48000), c), c, device=cuda)
+        state, sym, cnt = step(state, x, tables)
+        for k, lane in enumerate(_lane_streams(sym.cpu(), cnt.cpu())[: len(dops)]):
+            want[k].append(lane)
+    want = [np.concatenate(w) for w in want]
+    n0 = clock_ops.launches
+    got, _, where = serve_rx(tmp_path, {"buffer_size": block, "read_timeout_seconds": 5, "demod_mode": "fast"},
+                             [rx_request(settings, s) for s in starts], [raw], [[len(w)] for w in want],
+                             timeout=300, server_kw={"device": cuda, "devices": [cuda, cuda]})
+    assert clock_ops.launches == n0 + 2 * 4
+    assert where == [(k, "cuda") for k in range(4)]
     for k, g in enumerate(got):
         np.testing.assert_array_equal(g, want[k], err_msg=f"client {k}")

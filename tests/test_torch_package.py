@@ -62,7 +62,9 @@ def test_import_pulls_in_no_jax():
         "from sdrmodem_tpu_torch.server import config, session, tcp_server, wire\n"
         "from sdrmodem_tpu_torch.devices import base, file_source, iio_lib, native_ingest\n"
         "from sdrmodem_tpu_torch.devices import plutosdr, sdr_server_client\n"
-        "from sdrmodem_tpu_torch.utils import native, queue\n"
+        "from sdrmodem_tpu_torch.utils import native, queue, checkpoint, tree\n"
+        "from sdrmodem_tpu_torch.parallel import mesh, channels, time_shard\n"
+        "from sdrmodem_tpu_torch.tools import parity as parity_tool, multihost\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'sdrmodem_tpu.'))"
         " or m == 'sdrmodem_tpu']\n"
         "assert not bad, bad\n"
@@ -79,7 +81,10 @@ def test_sources_import_nothing_of_the_jax_package():
                  "sdrmodem_tpu_torch/ops/tx.py", "sdrmodem_tpu_torch/dsp/fsk_demod.py",
                  "sdrmodem_tpu_torch/dsp/clock_recovery.py", "sdrmodem_tpu_torch/dsp/pipeline.py",
                  "sdrmodem_tpu_torch/server/tcp_server.py", "sdrmodem_tpu_torch/server/session.py",
-                 "sdrmodem_tpu_torch/devices/plutosdr.py", "sdrmodem_tpu_torch/utils/native.py"):
+                 "sdrmodem_tpu_torch/devices/plutosdr.py", "sdrmodem_tpu_torch/utils/native.py",
+                 "sdrmodem_tpu_torch/parallel/mesh.py", "sdrmodem_tpu_torch/parallel/channels.py",
+                 "sdrmodem_tpu_torch/parallel/time_shard.py", "sdrmodem_tpu_torch/utils/checkpoint.py",
+                 "sdrmodem_tpu_torch/tools/parity.py", "sdrmodem_tpu_torch/tools/multihost.py"):
         assert want in names
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -4,16 +4,17 @@ server around it.
 
 The cases of ``tests/test_server.py`` that drive the fast group, run on the
 port with ``device="cpu"`` (where the step's kernels run their plain
-versions), except the lane sharding over several devices, which is not
-ported (ROADMAP A5): here ``SDRM_SERVER_MESH`` with two CUDA devices
-reported raises.  Beside them: every lane's symbols equal the port's step
-run directly over the same blocks and Doppler tables, and ``_reset_lane``
+versions), the lane sharding over several devices (``SDRM_SERVER_MESH``)
+on two CPU shards.  Beside them: every lane's symbols equal the port's step
+run directly over the same blocks and Doppler tables, ``_reset_lane``
 gives a lane ``init_full_state(1)``'s values and leaves every other lane's
-bits alone.
+bits alone, and a sharded group's lanes equal the one-device group's.
 
-Tolerances: the lanes against the direct step, and the reset, bit for bit
-(the same calls on the same data); symbols against the reference golden
-+-2 LSB with hard decisions equal (test_fsk_demod.c:43-48).
+Tolerances: the lanes against the direct step and the one-device group,
+and the reset, bit for bit (the same calls on the same data); the sharded
+group against the JAX package's sharded group as JAX's own test holds its
+two groups (+-2 LSB, fewer than 1% differing); symbols against the
+reference golden +-2 LSB with hard decisions equal (test_fsk_demod.c:43-48).
 """
 
 import asyncio
@@ -36,6 +37,7 @@ from sdrmodem_tpu_torch.utils.convert import doppler_tables_from_numpy, segment_
 from tests.server_helpers import MockSdrServer, ModemClient
 from tests.test_server import run, rx_request
 from tests.test_torch_server import PASS_START, TLE, make_config
+from tests.test_torch_fir import one_thread  # noqa: F401 (torch on one thread)
 
 LUCKY7 = FskDemodConfig(48000, 4800, 5000, 2, 2000, True)
 
@@ -380,11 +382,19 @@ def test_reset_lane_gives_fresh_state_and_leaves_the_others():
     fresh = state_numpy(group.pipe.init_full_state(1))
     for a, b in zip(state_numpy(before), before_np):  # the earlier state is untouched
         assert (a is None and b is None) or np.array_equal(a, b)
-    for got, was, init, tmpl in zip(after_np, before_np, fresh, template_np):
+    for tmpl, init in zip(template_np, fresh):  # the template is untouched
+        assert (tmpl is None and init is None) or np.array_equal(tmpl, init)
+    assert_reset(after_np, before_np, fresh, lane, c)
+    assert np.any(before_np[0][:, lane] != 0)  # the step had left history in the lane
+
+
+def assert_reset(after_np, before_np, fresh, lane, c):
+    """``lane`` of a c-lane state holds init_full_state(1)'s values (I and
+    Q halves) and every other lane its bits from before."""
+    for got, was, init in zip(after_np, before_np, fresh):
         if got is None:
             assert was is None and init is None
             continue
-        np.testing.assert_array_equal(tmpl, init)  # the template is untouched
         if got.ndim == 1:
             lanes = [lane]
             np.testing.assert_array_equal(got[lane], init[0])
@@ -397,17 +407,156 @@ def test_reset_lane_gives_fresh_state_and_leaves_the_others():
             np.testing.assert_array_equal(got[..., lane], init[..., 0])
         others = np.delete(got, lanes, axis=-1)
         np.testing.assert_array_equal(others, np.delete(was, lanes, axis=-1))
-    assert np.any(before_np[0][:, lane] != 0)  # the step had left history in the lane
 
 
-def test_server_mesh_with_two_devices_raises(monkeypatch):
-    """SDRM_SERVER_MESH with two CUDA devices visible raises
-    NotImplementedError naming ROADMAP A5 and never quietly takes one;
-    with one device the group runs on it, as the JAX package does there."""
+def group_lanes(iq, block, n_blocks, lanes, dopplers=(), **kw):
+    """Each of ``lanes`` stub lanes' symbols from a group over ``iq``; lane k
+    with the lucky7 pass's Doppler from PASS_START + k where k is in
+    ``dopplers``."""
+
+    def dop(k):
+        settings, start = lane_settings(k)
+        return doppler_from_settings(settings, 48000, 437525000, 0, start)
+
+    async def body():
+        group = BatchedRxGroup(LUCKY7, block, queue_capacity=8, **kw)
+        stubs = [Stub(dop(k) if k in dopplers else None) for k in range(lanes)]
+        for s in stubs:
+            group.attach(s)
+        await group.feed(iq[: n_blocks * block])
+        await _drain(group, n_blocks)
+        await group.close()
+        return group, [np.concatenate(s.emitted) for s in stubs]
+
+    return run(body())
+
+
+def test_group_mesh_lanes_equal_the_one_device_group(resources_dir, monkeypatch):
+    """SDRM_SERVER_MESH's sharding: a 256-lane group on two CPU shards (lanes
+    0-127 and 128-255, each with its own pipeline, step and state) gives
+    every lane the bytes of the one-device group, bit for bit, Doppler
+    lanes in both shards included."""
+    monkeypatch.setattr(BatchedRxGroup, "LANES", 256)
+    block, n_blocks, lanes = 4096, 2, 131
+    iq = np.fromfile(resources_dir / "lucky7.cf32", dtype=np.complex64)
+    dopplers = (0, 5, 128, 130)
+    sharded, got = group_lanes(iq, block, n_blocks, lanes, dopplers, device="cpu", devices=["cpu", "cpu"])
+    assert sharded.sharded and sharded.local == 128 and len(sharded.state) == 2
+    assert [s.quad_prev.shape for s in sharded.state] == [(1, 256), (1, 256)]
+    one, want = group_lanes(iq, block, n_blocks, lanes, dopplers, device="cpu")
+    assert not one.sharded and one.state.quad_prev.shape == (1, 512)
+    for k in range(lanes):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=f"lane {k}")
+    assert not np.array_equal(got[128][:300], got[129][:300])  # Doppler sets lane 128 apart
+
+
+def test_group_mesh_matches_the_jax_mesh_group(resources_dir, monkeypatch):
+    """The JAX package's own SDRM_SERVER_MESH case
+    (``tests/test_server.py::test_group_mesh_shards_lanes_over_devices``:
+    256 lanes, two shards, blocks of 8192, the corrected capture) on the
+    port: the sharded group's lane 0 within that test's tolerance of the
+    JAX sharded group's, and within +-2 LSB of the golden."""
+    from sdrmodem_tpu.dsp.fsk_demod import FskDemodConfig as JaxConfig
+    from sdrmodem_tpu.server.session import BatchedRxGroup as JaxGroup
+
+    iq = np.fromfile(resources_dir / "lucky7.expected.cf32", dtype=np.complex64)[:16384]
+    golden = np.fromfile(resources_dir / "lucky7.expected.s8", dtype=np.int8)
+    monkeypatch.setattr(BatchedRxGroup, "LANES", 256)
+    _, got = group_lanes(iq, 8192, 2, 1, device="cpu", devices=["cpu", "cpu"])
+
+    async def jax_group():
+        group = JaxGroup(JaxConfig(48000, 4800, 5000, 2, 2000, True), 8192, queue_capacity=4)
+        s = Stub()
+        group.attach(s)
+        await group.feed(iq)
+        await _drain(group, 2, timeout=300)
+        await group.close()
+        return np.concatenate(s.emitted)
+
+    monkeypatch.setattr(JaxGroup, "LANES", 256)
     monkeypatch.setenv("SDRM_SERVER_MESH", "1")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A5"):
-        BatchedRxGroup(LUCKY7, 2048, device="cpu")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    want = run(jax_group())
+    assert len(got[0]) == len(want)
+    d = np.abs(got[0].astype(np.int32) - want.astype(np.int32))
+    assert d.max() <= 2 and (d > 0).mean() < 0.01
+    dg = np.abs(got[0].astype(np.int32) - golden[: len(got[0])].astype(np.int32))
+    assert dg.max() <= 2
+
+
+def test_group_mesh_reset_touches_only_its_shard(monkeypatch):
+    """A reset of lane 129 (shard 1's lane 1) writes only shard 1's state:
+    shard 0's state is the same object, and in shard 1 the lane gets
+    init_full_state(1)'s values while every other lane keeps its bits."""
+    monkeypatch.setattr(BatchedRxGroup, "LANES", 256)
+    group = BatchedRxGroup(LUCKY7, 2048, device="cpu", devices=["cpu", "cpu"])
+    for k in range(130):
+        group.attach(Stub())
+    x = np.stack([noise(4).real, noise(4).imag]).astype(np.float32)
+    group.state = group._step_host(x, segment_tables({}, group.dop_rows, group.LANES))[0]
+    before = group.state
+    before_np = [state_numpy(s) for s in before]
+    group._reset_lane(129)
+    assert group.state[0] is before[0]
+    assert_reset(state_numpy(group.state[1]), before_np[1], state_numpy(group.pipe.init_full_state(1)), 1, 128)
+    assert np.any(before_np[1][0][:, 1] != 0)  # the step had left history in the lane
+
+
+@pytest.mark.parametrize("lanes,visible,want", [
+    (256, 8, 2), (512, 4, 4), (512, 8, 4), (384, 4, 3), (128, 8, 1), (256, 1, 1), (1024, 3, 2),
+])
+def test_mesh_shards_follows_the_jax_rule(lanes, visible, want):
+    """SDRM_SERVER_MESH's choice: the most visible devices that divide the
+    lanes into multiples of 128 (sdrmodem_tpu/server/session.py:375-382)."""
+    from sdrmodem_tpu_torch.server.session import mesh_shards
+
+    assert mesh_shards(lanes, visible) == want
+
+
+def test_group_devices_are_checked_and_the_mesh_needs_cards(monkeypatch):
+    """Devices that do not split the lanes into 128s raise, never quietly
+    run on fewer; SDRM_SERVER_MESH on a CPU group keeps the one device, as
+    there is no card to shard over; without the variable one device."""
+    monkeypatch.setattr(BatchedRxGroup, "LANES", 256)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        BatchedRxGroup(LUCKY7, 2048, device="cpu", devices=["cpu"] * 3)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        BatchedRxGroup(LUCKY7, 2048, device="cpu", devices=["cpu"] * 4)
+    monkeypatch.setenv("SDRM_SERVER_MESH", "1")
     group = BatchedRxGroup(LUCKY7, 2048, device="cpu")
-    assert group.state.quad_prev.shape == (1, 2 * group.LANES)
+    assert group.devices == [torch.device("cpu")] and group.state.quad_prev.shape == (1, 512)
+    monkeypatch.setenv("SDRM_SERVER_MESH", "0")
+    group = BatchedRxGroup(LUCKY7, 2048, device="cpu", devices=["cpu"] * 2)
+    assert group.sharded and group.devices == [torch.device("cpu")] * 2
+
+
+def test_server_passes_its_devices_to_the_group(tmp_path, resources_dir, monkeypatch):
+    """SdrModemServer(config, device, devices): a fast client's group
+    shards its lanes over the server's devices, and the client's symbols
+    stay within +-2 LSB of the golden."""
+    monkeypatch.setattr(BatchedRxGroup, "LANES", 256)
+    iq = np.fromfile(resources_dir / "lucky7.expected.cf32", dtype=np.complex64)[:16384]
+    golden = np.fromfile(resources_dir / "lucky7.expected.s8", dtype=np.int8)
+
+    async def body():
+        mock = MockSdrServer()
+        ss_port = await mock.start()
+        config = make_config(tmp_path, rx_sdr_type=RxSdrType.SDR_SERVER,
+                             rx_sdr_server_port=ss_port, demod_mode="fast")
+        server = SdrModemServer(config, device="cpu", devices=["cpu", "cpu"])
+        await server.start()
+        c1 = await ModemClient.connect("127.0.0.1", server.port)
+        assert (await c1.rx_request(rx_request())).status == wire.ResponseStatus.SUCCESS
+        await mock.wait_client()
+        (stream,) = server.streams
+        (group,) = stream.groups
+        assert group.sharded and group.devices == [torch.device("cpu")] * 2
+        await mock.send_iq(iq)
+        d1 = np.frombuffer(await c1.read_stream(1500, timeout=90), dtype=np.int8)
+        diff = np.abs(d1.astype(np.int32) - golden[: len(d1)].astype(np.int32))
+        assert diff.max() <= 2
+        await c1.shutdown()
+        c1.close()
+        await mock.stop()
+        await server.stop()
+
+    run(body())

@@ -137,8 +137,9 @@ def rx_request(doppler=None, start=0) -> wire.RxRequest:
     )
 
 
-def serve_rx(base_path, config_kw, requests, blocks, cumulative, timeout=900.0):
-    """Drive the port's server in-process with its default device: a mock
+def serve_rx(base_path, config_kw, requests, blocks, cumulative, timeout=900.0, server_kw=None):
+    """Drive the port's server in-process with its default device (and
+    ``server_kw``, e.g. the fast group's ``devices``): a mock
     sdr-server stream, one client a request.  The mock sends ``blocks``
     one at a time, and after each one client k reads up to its
     ``cumulative[k][t]`` bytes.  Returns each client's bytes (int8), the ms
@@ -152,7 +153,7 @@ def serve_rx(base_path, config_kw, requests, blocks, cumulative, timeout=900.0):
         mock = MockSdrServer()
         server = SdrModemServer(server_config(
             base_path, rx_sdr_type=RxSdrType.SDR_SERVER, rx_sdr_server_port=await mock.start(),
-            **config_kw))
+            **config_kw), **(server_kw or {}))
         await server.start()
         clients, ids = [], []
         for req in requests:
