@@ -10,7 +10,11 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. build   — nvcc compiles csrc/*.cu into build/kernels/, one process per
              source, all started together;
 2. check   — each kernel against its plain PyTorch version on the card at
-             128 lanes x 65536 samples: the front and the clock (three
+             128 lanes x 65536 samples: the quad-demod kernel's atan2 form
+             (the banded front's stage in the "atan2" modes) on the lucky7
+             capture and on the nan fixture tiled over 128 lanes, within
+             atan2f's 3 ulp bound twice over times the gain, its LUT form
+             bit for bit; the front and the clock (three
              configurations, three blocks with carried state; B2 bit for
              bit); B2 where its walk meets each edge of its chunks and
              slots (lanes scaled by 1e4 and 1e5, a late entry, NaN and inf
@@ -50,7 +54,11 @@ Phases (any failure exits non-zero, and no result line is printed):
              doppler=True, layout="fanout"), on the card; the four
              fixtures through the exact and float32 streamers and
              FskDemodulator at block 262144, the exact streamer's bytes
-             equal to the same run on the CPU; the TX golden (320 samples),
+             equal to the same run on the CPU; the four fixtures with
+             use_atan_lut="atan2" (the banded route on every front: "fused"
+             and "step" give its bytes, B1 and B7 never launch), within +-2
+             LSB and hard decisions 1.0, lucky7_nodc's symbols 6319-6389
+             (the lock that turns on the last ulp) excepted; the TX golden (320 samples),
              the card's TX into the card's RX, and 32 KiB at I = 60
              against the float64 chain;
 4. main    — the paths, each driven with the launch counts set to 0 just
@@ -117,7 +125,13 @@ Phases (any failure exits non-zero, and no result line is printed):
              every lane equal to the unsharded 512-lane step; (p) python -m
              sdrmodem_tpu_torch.tools.multihost --backend gloo, 2
              processes x 2 shards, 16 streams x 32768, 0 symbols differing
-             from one process; (q) the parity tool, both modes, its gate.  After (a), B4 over [suffix | y3] of its block, in both
+             from one process; (q) the parity tool, both modes, its gate;
+             (r) each twin of the JAX tools as python -m
+             sdrmodem_tpu_torch.tools.<name> under its own timeout, which
+             must exit 0: graft_entry --devices 4 (the dry run on 4
+             repeated cards), perf, latency at 4096 and 262144, ber_sweep
+             at 512 B, trace of 2 steps, and the three profiles at 128 x
+             262144.  After (a), B4 over [suffix | y3] of its block, in both
              layouts, must equal B2's symbols; in (f) and (g), B4 at the
              streamer's one-lane buffer must equal its plain version;
 5. kernels — each kernel alone at its path's shape: time, its plain
@@ -934,7 +948,55 @@ def check_b2_slots(torch, dev):
         f"slot and at one chunk a slot: {json.dumps(res)}")
 
 
+# atan2f's maximum ulp error (CUDA C++ Programming Guide, single-precision
+# mathematical functions)
+ATAN2F_ULP = 3
+
+
+def atan2_tolerance(gain):
+    """The quad kernel's atan2 form against its plain version (torch.atan2
+    on the card): each within ATAN2F_ULP ulps of an angle |a| <= pi (an ulp
+    of pi is 2^-22), times the gain, and the product's rounding."""
+    return gain * 2 * ATAN2F_ULP * 2.0**-22 + float(np.spacing(np.float32(gain * np.pi)))
+
+
+def check_quad_atan2(torch, dev):
+    """The quad-demod kernel's atan2 form (the banded front's stage in the
+    "atan2" modes) against its plain version on the card: the lucky7
+    capture at 128 x 65536, and the nan fixture tiled over 128 lanes (NaN,
+    ~1e38 and denormal samples, products that round to (0, 0) -> 0), within
+    ``atan2_tolerance``, NaN where the plain version has NaN; the LUT form
+    bit for bit."""
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.ops import front as front_ops
+
+    res = {}
+    for name, fin, rows, cfg in (("lucky7", "lucky7.expected.cf32", CHECK_BLOCK, LUCKY7),
+                                 ("nan", "inputnan.cf32", 4096, FRONT_CONFIGS["nan"])):
+        taps = DemodPipeline(FskDemodConfig(*cfg), rows, device=dev).front_taps
+        y = capture_lanes(torch, dev, rows + 1, LANES, fin)
+        prev, y1 = y[:1].contiguous(), y[1:].contiguous()
+        atan = taps._replace(atan_lut=False)
+        got = front_ops.quad_demod(y1, prev, atan)
+        want = front_ops.quad_demod_plain(y1, prev, atan)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        need(torch.equal(torch.isnan(got), nan), f"quad atan2 {name}: NaN where the plain version has none")
+        err = (got[~nan] - want[~nan]).abs().max().item()
+        tol = atan2_tolerance(taps.quad_gain)
+        res[name] = dict(max_abs_err=err, tol=tol, nan=int(nan.sum().item()), zeros_out=int((got == 0).sum().item()),
+                         lut_equal=same_bits(torch, front_ops.quad_demod(y1, prev, taps),
+                                             front_ops.quad_demod_plain(y1, prev, taps)))
+        need(err <= tol, f"quad atan2 {name}: |kernel - plain| {err} > {tol}")
+        need(res[name]["lut_equal"], f"quad LUT {name}: kernel differs from its plain version")
+    log(f"[check] quad demod, atan2 form vs plain (tolerance gain * 2 * {ATAN2F_ULP} ulp of pi + an ulp of the "
+        f"result), LUT form bit for bit: {json.dumps(res)}")
+    return max(r["max_abs_err"] for r in res.values())
+
+
 def phase_check(torch, dev):
+    err_quad = check_quad_atan2(torch, dev)
     check_front_and_clock(torch, dev)
     check_b2_slots(torch, dev)
     check_fir(torch, dev)
@@ -942,6 +1004,7 @@ def phase_check(torch, dev):
     check_front_banded(torch, dev)
     err = check_tx(torch, dev)
     err["ragged"], err["b4_lanes"] = check_ragged(torch, dev)
+    err["quad_atan2"] = err_quad
     return err
 
 
@@ -963,6 +1026,7 @@ def phase_golden(torch, dev):
             need(rep["hard_decision_agreement"] == 1.0, f"{name} front={front}: hard decisions differ")
             need(rep["max_lsb"] <= 2, f"{name} front={front}: {rep['max_lsb']} LSB from the golden")
         need(np.array_equal(got["fused"], got["step"]), f"{name}: front=step differs from fused")
+    golden_atan2(torch, dev)
 
     # the raw pass through the server's call, rows every 2000 samples (the
     # buffer the goldens were recorded with)
@@ -991,6 +1055,36 @@ def phase_golden(torch, dev):
     need(within >= 0.995, f"doppler golden: only {within} within ±2 LSB")
     golden_ragged(torch, dev)
     golden_tx(torch, dev)
+
+
+def golden_atan2(torch, dev):
+    """The four fixtures through make_batched_step_full(layout="tm") with
+    use_atan_lut="atan2": the banded route on every front (the quad kernel's
+    atan2f form), "fused" and "step" giving the banded bytes with B1 and B7
+    never launched; each fixture within +-2 LSB with hard decisions 1.0, but
+    lucky7_nodc's symbols 6319-6389, whose lock turns on the last ulp of y3
+    (utils/parity.py:atan2_golden_failures)."""
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.ops import front as front_ops
+    from sdrmodem_tpu_torch.ops import step as step_ops
+    from sdrmodem_tpu_torch.utils.parity import GOLDEN_CASES, atan2_golden_failures, demod_capture, golden_report
+
+    for name, cfg, fin, fexp, block in GOLDEN_CASES:
+        iq = np.fromfile(FIXTURES / fin, np.complex64)
+        golden = np.fromfile(FIXTURES / fexp, np.int8)
+        pipe = DemodPipeline(cfg, block, use_atan_lut="atan2", device=dev)
+        b1, b7, fronts = front_ops.fused_launches, step_ops.launches, front_ops.launches
+        got = {front: demod_capture(pipe, iq, front=front) for front in ("banded", "fused", "step")}
+        torch.cuda.synchronize()
+        need(front_ops.fused_launches == b1 and step_ops.launches == b7,
+             f"{name} atan2: B1 or B7 launched ({front_ops.fused_launches - b1}, {step_ops.launches - b7})")
+        need(front_ops.launches > fronts, f"{name} atan2: the quad kernel was never launched")
+        rep = golden_report(got["banded"], golden)
+        log(f"[golden] {name} use_atan_lut=atan2 (banded route): {json.dumps(rep)}")
+        fails = atan2_golden_failures(name, rep)
+        need(not fails, f"atan2 goldens: {fails}")
+        for front in ("fused", "step"):
+            need(np.array_equal(got[front], got["banded"]), f"{name} atan2: front={front} differs from banded")
 
 
 def exact_stage_gap(torch, dev, cfg, iq):
@@ -1603,10 +1697,10 @@ def phase_main(torch, dev):
         add(counts)
     sharded_paths = {}
     for name, fn in (("m", path_channel_sharded), ("n", path_time_sharded), ("o", path_server_mesh),
-                     ("p", path_multihost), ("q", path_parity)):
+                     ("p", path_multihost), ("q", path_parity), ("r", path_tools)):
         t0 = time.perf_counter()
         out = fn(torch, dev)
-        if name == "p":  # its kernels launch in the tool's own processes
+        if name in ("p", "r"):  # their kernels launch in the tools' own processes
             sharded_paths[name] = out
         else:
             sharded_paths[name], counts = out
@@ -2397,6 +2491,62 @@ def path_parity(torch, dev):
     need(report["gate"]["pass"] and report["gate_exact"]["pass"],
          f"(q) the parity gate failed: {report['gate']['failures'] + report['gate_exact']['failures']}")
     return report, counts
+
+
+# path (r): each twin of the JAX tools as ``python -m`` runs it, at a small
+# size: (module, arguments, environment, seconds allowed)
+PROFILE_ENV = {"SDRM_BENCH_BLOCK": str(SERVER_BLOCK), "SDRM_BENCH_CHANNELS": str(LANES)}
+TOOL_RUNS = [
+    ("graft_entry", ["--devices", "4"], {}, 180),
+    ("perf", [], {}, 180),
+    ("latency", ["--reps", "5", "--blocks", "4096,262144"], {}, 180),
+    ("ber_sweep", ["--bytes", "512"], {}, 180),
+    ("trace", ["--steps", "2", "--out", "{tmp}/trace"], {}, 180),
+    ("profile_step", [], PROFILE_ENV, 180),
+    ("profile_front", [], PROFILE_ENV, 180),
+    ("profile_variants", [], PROFILE_ENV, 180),
+]
+
+
+def run_tool(module, args, env, timeout, tmp):
+    """One tool in its own process (its own session, so a timeout stops
+    it and its children): (exit code, stdout, stderr, wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", f"sdrmodem_tpu_torch.tools.{module}",
+                             *(a.format(tmp=tmp) for a in args)],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, **env}, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        out, err = "", f"timed out after {timeout} s"
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def path_tools(torch, dev):
+    """(r) the twins of the JAX tools and of the dry run, each as ``python -m
+    sdrmodem_tpu_torch.tools.<name>`` on the card at a small size under its
+    own timeout (TOOL_RUNS): each must exit 0; its report lines and wall
+    time are printed.  The dry run runs on 4 repeated cards; the profiles
+    at 128 x 262144.  Their kernels launch in the tools' own processes."""
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    walls = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for module, args, env, timeout in TOOL_RUNS:
+            rc, out, err, wall = run_tool(module, args, env, timeout, tmp)
+            for line in out.strip().splitlines():
+                log(f"[main] (r) {module}: {line[:2000]}")
+            need(rc == 0, f"(r) {module} exited {rc}: {err[-2000:]}")
+            walls[module] = round(wall, 3)
+            log(f"[main] (r) {module}: exit 0 in {wall:.3f} s")
+    log(f"[main] (r) tools, wall s each: {json.dumps(walls)} [{card()}]")
+    return walls
 
 
 def fast_direct(torch, dev, blocks, settings, starts, lanes, max_batch):

@@ -403,13 +403,17 @@ namespace {
 
 // yq[k, c] = gain * atan2(im, re) of y1[k] * conj(y1[k-1]); y1 is (rows, 2C)
 // with I in lanes [0, C) and Q in [C, 2C); y1[-1] is prev (the carried row).
+// kLut: the reference's table arctangent; else atan2f.
+template <bool kLut>
 __global__ void quad_demod_kernel(const float* __restrict__ y1,
                                   const float* __restrict__ prev, int rows,
                                   int lanes, const float* __restrict__ table,
                                   float gain, float* __restrict__ yq) {
   __shared__ float s_table[kAtanTableSize];
-  for (int j = threadIdx.x; j < kAtanTableSize; j += blockDim.x) s_table[j] = table[j];
-  __syncthreads();
+  if (kLut) {
+    for (int j = threadIdx.x; j < kAtanTableSize; j += blockDim.x) s_table[j] = table[j];
+    __syncthreads();
+  }
 
   const long long n = (long long)rows * lanes;
   for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
@@ -418,22 +422,25 @@ __global__ void quad_demod_kernel(const float* __restrict__ y1,
     const int c = (int)(idx - k * lanes);
     const float* cur = y1 + k * 2 * lanes;
     const float* prv = k == 0 ? prev : cur - 2 * lanes;
-    yq[idx] = quad_demod_sample(cur[c], cur[lanes + c], prv[c], prv[lanes + c], s_table, gain);
+    yq[idx] = kLut ? quad_demod_sample(cur[c], cur[lanes + c], prv[c], prv[lanes + c], s_table, gain)
+                   : quad_demod_sample_atan2(cur[c], cur[lanes + c], prv[c], prv[lanes + c], gain);
   }
 }
 
 }  // namespace
 
 // The quad-demod stage alone, for the banded front: yq (rows, C) from y1
-// (rows, 2C) and the carried row prev (1, 2C).
+// (rows, 2C) and the carried row prev (1, 2C); atan_lut 1 takes the table,
+// 0 atan2f.
 extern "C" int quad_demod_forward(const float* y1, const float* prev, int rows, int lanes,
-                                  const float* atan_table, float quad_gain, float* yq,
-                                  void* stream_handle) {
+                                  const float* atan_table, int atan_lut, float quad_gain,
+                                  float* yq, void* stream_handle) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   const long long n = (long long)rows * lanes;
   const long long want = (n + 255) / 256;
   const int grid = (int)(want < 4096 ? want : 4096);
-  quad_demod_kernel<<<grid, 256, 0, stream>>>(y1, prev, rows, lanes, atan_table, quad_gain, yq);
+  auto kernel = atan_lut ? quad_demod_kernel<true> : quad_demod_kernel<false>;
+  kernel<<<grid, 256, 0, stream>>>(y1, prev, rows, lanes, atan_table, quad_gain, yq);
   return cudaGetLastError();
 }
 

@@ -41,13 +41,31 @@ __device__ __forceinline__ float fast_atan2(float y, float x, const float* table
   return x >= 0.f ? __fsub_rn(base, kHalfPi) : __fsub_rn(-kHalfPi, base);
 }
 
-// gain * atan2(im, re) of (i + jq) * conj(si + jsq): the current row (i, q)
-// against the previous one (si, sq).
+// (re, im) of (i + jq) * conj(si + jsq): the current row (i, q) against the
+// previous one (si, sq).
+__device__ __forceinline__ void conj_product(float i, float q, float si, float sq, float& re,
+                                             float& im) {
+  re = __fadd_rn(__fmul_rn(i, si), __fmul_rn(q, sq));
+  im = __fsub_rn(__fmul_rn(q, si), __fmul_rn(i, sq));
+}
+
+// gain * atan2(im, re) of the conjugate product, with the table.
 __device__ __forceinline__ float quad_demod_sample(float i, float q, float si, float sq,
                                                    const float* table, float gain) {
-  const float re = __fadd_rn(__fmul_rn(i, si), __fmul_rn(q, sq));
-  const float im = __fsub_rn(__fmul_rn(q, si), __fmul_rn(i, sq));
+  float re, im;
+  conj_product(i, q, si, sq, re, im);
   return __fmul_rn(gain, fast_atan2(im, re, table));
+}
+
+// The same sample with atan2f in place of the table (the pipeline's "atan2"
+// modes, on the banded front only), with the table's (0, 0) -> 0 rule, as
+// dsp/elementwise.py:atan2_dispatch takes torch.atan2.
+__device__ __forceinline__ float quad_demod_sample_atan2(float i, float q, float si, float sq,
+                                                         float gain) {
+  float re, im;
+  conj_product(i, q, si, sq, re, im);
+  const float angle = (fabsf(im) > 0.f || fabsf(re) > 0.f) ? atan2f(im, re) : 0.f;
+  return __fmul_rn(gain, angle);
 }
 
 }  // namespace

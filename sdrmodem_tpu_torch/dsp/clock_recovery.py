@@ -324,7 +324,9 @@ def clock_mm_stream(
         num_symbols = max_symbols(ln + cap, float(np.float32(omega)), omega_relative_limit, gain_mu)
     nv = torch.as_tensor(ln if n_valid is None else n_valid, dtype=torch.int32, device=x.device)
     c = int(np.prod(lead, dtype=np.int64))
-    flat = ClockState(*(v.reshape(c, *v.shape[len(lead):]) for v in state))
+    # contiguous: a fresh state's leaves are expanded views, and B4 reads
+    # each through its pointer
+    flat = ClockState(*(v.reshape(c, *v.shape[len(lead):]).contiguous() for v in state))
     outs, counts, new = _clock_ragged(
         x.reshape(c, ln), nv.expand(lead).reshape(c), flat,
         omega=omega, gain_omega=gain_omega, gain_mu=gain_mu,

@@ -166,7 +166,9 @@ class DemodPipeline:
 
     ``use_atan_lut``: True, "lut" or "free" select the reference LUT
     arctangent ("free" is the TPU's gather-free evaluation of the same
-    table); False or "atan2" ``torch.atan2``, on the ragged path only.
+    table); False or "atan2" atan2 with the table's (0, 0) -> 0 rule
+    (``torch.atan2`` on the ragged path, the banded front's quad-demod
+    kernel with ``atan2f`` on the full-block path).
     ``exact=True`` takes the ragged path's FIRs with a float64 accumulator.
     ``device`` defaults to CUDA; pass ``device="cpu"`` to run the plain
     PyTorch versions of the kernels."""
@@ -202,6 +204,7 @@ class DemodPipeline:
             d=d,
             quad_gain=config.quad_gain,
             atan_table=atan_table(self.device),
+            atan_lut=is_lut_mode(use_atan_lut),
         )
         self.bank = default_bank(self.device)
 
@@ -394,7 +397,8 @@ class DemodPipeline:
                 f"got {x.dtype} {tuple(x.shape)} on {x.device}"
             )
         if layout == "cm":
-            return x.permute(2, 1, 0).reshape(b, 2 * c)
+            # contiguous: at one channel the reshape is a strided view
+            return x.permute(2, 1, 0).reshape(b, 2 * c).contiguous()
         if layout == "fanout":
             # one shared IQ stream broadcast to every lane
             return torch.cat(
@@ -462,9 +466,8 @@ class DemodPipeline:
         ``clock_backend`` is "pallas", the chunked clock kernel (B2) over
         the whole block, or "scan", the chunks one at a time through the
         ragged walk (B4 on the card, its plain version on the CPU); the two
-        give the same bits.  The fused front has the LUT arctangent only,
-        so the "atan2" modes raise ``NotImplementedError``; ``exact`` raises
-        ``ValueError``, as the JAX package's float32-only path does.
+        give the same bits.  ``exact`` raises ``ValueError``, as the JAX
+        package's float32-only path does.
 
         ``layout`` picks the input convention (C = the state's channels):
           - "cm"     x is (C, 2, B), channel-major;
@@ -495,8 +498,11 @@ class DemodPipeline:
         banded front where ``fused_front_available()`` is False: filters
         too long for B1's shared-memory layout (LPF1 past ~690 taps, e.g.
         288 kHz at 9600 Bd), as the JAX package takes it where B1 has no
-        TPU tile.  Each choice is made here, once, from the shapes; the
-        launch counters show which route ran (``ops/step.py:launches``,
+        TPU tile, and for the atan2 arctangent modes (``use_atan_lut`` False
+        or "atan2"), which B1 and B7 do not take: there every front runs
+        ``banded_front``, its quad-demod kernel with ``atan2f``.  Each
+        choice is made here, once, from the shapes; the launch counters
+        show which route ran (``ops/step.py:launches``,
         ``ops/front.py:fused_launches``, ``ops/clock.py:launches``), and
         every route gives the same bits.
 
@@ -508,10 +514,6 @@ class DemodPipeline:
         """
         if self.exact:
             raise ValueError("the full-block fast path is float32-only")
-        if not is_lut_mode(self.use_atan_lut):
-            raise NotImplementedError(
-                f"use_atan_lut={self.use_atan_lut!r}: the full-block front has the LUT arctangent only"
-            )
         self._check_full_block()
         if clock_backend not in ("pallas", "scan"):
             raise ValueError(f"unknown clock_backend {clock_backend!r}")

@@ -45,7 +45,7 @@ from typing import NamedTuple
 
 import torch
 
-from sdrmodem_tpu_torch.dsp.elementwise import fast_atan2, nco_mix_pair_tm, nco_steps
+from sdrmodem_tpu_torch.dsp.elementwise import atan2_dispatch, nco_mix_pair_tm, nco_steps
 from sdrmodem_tpu_torch.ops import _build
 from sdrmodem_tpu_torch.ops.fir import conv1d_banded_tm, conv1d_banded_tm_plain
 
@@ -75,7 +75,7 @@ _SIGNATURES = {
     "front_shared_bytes": [_I, _I, _I],
     "quad_demod_forward": [
         _P, _P, _I, _I,  # y1, prev, rows, lanes
-        _P, _F, _P, _P,  # atan_table, quad_gain, yq, stream
+        _P, _I, _F, _P, _P,  # atan_table, atan_lut, quad_gain, yq, stream
     ],
     "nco_mix_forward": [
         _P, _I, _I,  # x, rows, lanes
@@ -93,6 +93,10 @@ class FrontTaps(NamedTuple):
     d: int  # LPF2 decimation
     quad_gain: float  # float32-exact
     atan_table: torch.Tensor  # (257,) reference arctangent table
+    # the quad demod's arctangent: the table (True), or atan2 with the
+    # table's (0, 0) -> 0 rule (False; the banded front only: B1 and B7
+    # take the table)
+    atan_lut: bool = True
 
 
 # front.cu's launch geometry (csrc/front.cu: kGroupLanes, kRows1, kMaxWarps)
@@ -249,19 +253,21 @@ def nco_mix(x: torch.Tensor, dop) -> torch.Tensor:
 
 
 def quad_demod_plain(y1, quad_prev, taps: FrontTaps):
-    """yq (B, C) = gain * atan2 of y1 * conj(y1[-1]), y1[-1] = quad_prev."""
+    """yq (B, C) = gain * atan2 of y1 * conj(y1[-1]), y1[-1] = quad_prev,
+    the arctangent ``taps.atan_lut`` names (``elementwise.atan2_dispatch``)."""
     c = y1.shape[1] // 2
     shifted = torch.cat([quad_prev, y1[:-1]], dim=0)
     i, q = y1[:, :c], y1[:, c:]
     si, sq = shifted[:, :c], shifted[:, c:]
     re = i * si + q * sq
     im = q * si - i * sq
-    return taps.quad_gain * fast_atan2(im, re, taps.atan_table)
+    return taps.quad_gain * atan2_dispatch(im, re, taps.atan_lut, taps.atan_table)
 
 
 def quad_demod(y1, quad_prev, taps: FrontTaps):
     """The quad-demod stage: front.cu's kernel for a CUDA tensor, the plain
-    version for a CPU tensor."""
+    version for a CPU tensor.  The kernel takes the table or, where
+    ``taps.atan_lut`` is False, ``atan2f`` with the same (0, 0) -> 0 rule."""
     global launches
     if _build.device_kind(y1, "quad_demod") == "cpu":
         return quad_demod_plain(y1, quad_prev, taps)
@@ -275,7 +281,7 @@ def quad_demod(y1, quad_prev, taps: FrontTaps):
     with torch.cuda.device(dev):
         rc = lib.quad_demod_forward(
             y1.data_ptr(), quad_prev.data_ptr(), b, c2 // 2, taps.atan_table.data_ptr(),
-            taps.quad_gain, yq.data_ptr(), _stream(dev),
+            int(taps.atan_lut), taps.quad_gain, yq.data_ptr(), _stream(dev),
         )
     _build.check(lib, rc, "quad_demod_forward")
     launches += 1
@@ -313,7 +319,9 @@ def fused_front_plain(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps: FrontTa
 
 def fused_front(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps: FrontTaps, dop=None):
     """The front end over one full block: the CUDA kernels for a CUDA tensor,
-    the plain version for a CPU tensor.  Arguments as ``fused_front_plain``."""
+    the plain version for a CPU tensor.  Arguments as ``fused_front_plain``;
+    the taps' arctangent is the table (``check_lut``)."""
+    check_lut(taps, "fused_front")
     if _build.device_kind(x, "fused_front") == "cpu":
         return fused_front_plain(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps, dop)
     return _front_cuda(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps, dop)
@@ -329,6 +337,14 @@ def banded_front(x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps: FrontTaps, d
         x, lpf1_hist, quad_prev, lpf2_hist, dc_hist, taps, dop,
         mix=nco_mix, fir=conv1d_banded_tm, quad=quad_demod,
     )
+
+
+def check_lut(taps: FrontTaps, what: str) -> None:
+    """Raise unless the taps name the table arctangent: B1 and B7 have no
+    other (the pipeline routes the atan2 modes to ``banded_front``)."""
+    if not taps.atan_lut:
+        raise ValueError(f"{what}: the fused kernels take the LUT arctangent only; "
+                         "the atan2 modes run on banded_front")
 
 
 def _check(name, t, shape, device):

@@ -47,7 +47,7 @@ from sdrmodem_tpu_torch.ops.clock import (
     k_slots,
     omega_limit,
 )
-from sdrmodem_tpu_torch.ops.front import FrontTaps, _dop_table, check_dop, fused_front_plain
+from sdrmodem_tpu_torch.ops.front import FrontTaps, _dop_table, check_dop, check_lut, fused_front_plain
 
 DEFAULT_CHUNK = 1024  # decimated rows a clock chunk (pallas_step.py:68)
 MAX_SHARED_BYTES = 232448  # shared memory one block may have on an H100 (227 KB)
@@ -166,7 +166,9 @@ def fused_step(
     (``max_symbols(chunk + sfx, ...)``); ``dop`` the Doppler tables of
     ``ops/front.py`` or None.  Returns (outs (n_chunks, K, C), counts
     (n_chunks, C) int32, overflow (n_chunks, C), (lpf1', quad', lpf2',
-    dc'), {omega, mu, last, resid, suffix})."""
+    dc'), {omega, mu, last, resid, suffix}).  The taps' arctangent is the
+    table (``ops/front.py:check_lut``)."""
+    check_lut(taps, "fused_step")
     kw = dict(chunk=chunk, num_symbols=num_symbols, omega_mid=omega_mid,
               omega_relative_limit=omega_relative_limit, gain_omega=gain_omega, gain_mu=gain_mu,
               dop=dop)

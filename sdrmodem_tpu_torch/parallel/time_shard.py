@@ -129,7 +129,8 @@ def _ring_halo(mesh: Mesh, shards: list[_Shard], arrs: list[torch.Tensor], h: in
 def _front_halo(mesh: Mesh, shards: list[_Shard], xs: list[torch.Tensor], dops) -> list[torch.Tensor]:
     """``_front_full_halo``: the banded front (``ops/front.py:banded_front``)
     stage by stage on every shard, each stage's carried history replaced by
-    the ring-left shard's tail of it."""
+    the ring-left shard's tail of it; the quad stage takes the pipeline's
+    arctangent (``FrontTaps.atan_lut``), as JAX's takes ``use_atan_lut``."""
     taps = [sh.pipe.front_taps for sh in shards]
     if dops is not None:
         xs = [nco_mix(x, dop) for x, dop in zip(xs, dops)]

@@ -172,7 +172,7 @@ def orchestrate(args) -> dict:
         "mismatched_symbols": mismatched,
     }
     if device.type == "cuda":
-        from sdrmodem_tpu_torch.tools.parity import card
+        from sdrmodem_tpu_torch.tools._common import card
 
         report["card"] = card()
     return report

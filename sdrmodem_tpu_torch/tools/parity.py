@@ -33,7 +33,6 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import sys
 import time
 
@@ -41,6 +40,7 @@ import numpy as np
 
 from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
 from sdrmodem_tpu_torch.ops._build import resolve_device
+from sdrmodem_tpu_torch.tools._common import card
 from sdrmodem_tpu_torch.utils.parity import GOLDEN_CASES, demod_capture
 
 FIXTURES = pathlib.Path(__file__).resolve().parents[2] / "tests" / "fixtures"
@@ -106,13 +106,6 @@ def replay_fixture(config, fin: str, fexp: str, block: int, *, exact: bool, devi
     d = config.decimation
     pipe = DemodPipeline(config, -(-block // d) * d, exact=exact, device=device)
     return fixture_report(demod_capture(pipe, iq), golden)
-
-
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def run(block: int = 16384, names=None, modes=("production",), device=None) -> dict:

@@ -64,3 +64,26 @@ def golden_report(got: np.ndarray, golden: np.ndarray) -> dict:
         beyond_tol_span=[int(bad[0]), int(bad[-1])] if len(bad) else None,
         hard_decision_agreement=float(agree.mean()) if confident.any() else 1.0,
     )
+
+
+# lucky7_nodc's symbols where the clock's lock turns on the last ulp of y3
+# (ROADMAP §C): an arctangent other than the reference's table may move
+# them past +-2 LSB, and nothing else
+NODC_STRETCH = (6319, 6389)
+
+
+def atan2_golden_failures(name: str, rep: dict) -> list[str]:
+    """What fails the gate of a fixture demodulated with the atan2
+    arctangent (``golden_report``'s numbers): 99% of the symbols, hard
+    decisions 1.0 and +-2 LSB, but that lucky7_nodc's symbols beyond +-2
+    LSB may lie in ``NODC_STRETCH`` (the golden was recorded with the
+    table)."""
+    fails = []
+    if rep["symbols"] < 0.99 * rep["golden_symbols"]:
+        fails.append(f"{name}: {rep['symbols']} symbols of {rep['golden_symbols']}")
+    if rep["hard_decision_agreement"] != 1.0:
+        fails.append(f"{name}: hard decisions {rep['hard_decision_agreement']}")
+    span = rep["beyond_tol_span"]
+    if span is not None and not (name == "lucky7_nodc" and NODC_STRETCH[0] <= span[0] <= span[1] <= NODC_STRETCH[1]):
+        fails.append(f"{name}: {rep['max_lsb']} LSB from the golden over symbols {span}")
+    return fails

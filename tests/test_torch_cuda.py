@@ -29,8 +29,16 @@ Doppler, and against the fused front (B1) followed by B2 with and without
 it (the same symbol stream, chunked otherwise, and the same state).  On
 shards of the card (``parallel/``, the server's sharded group) every
 sharded result equals the unsharded step's bit for bit: the same kernels on
-the same rows, the histories handed between shards.
+the same rows, the histories handed between shards.  The quad-demod
+kernel's atan2 form against its plain version (``torch.atan2`` on the card,
+the same (0, 0) -> 0 rule): the same products, then two atan2f
+implementations each within ATAN2F_ULP of the true angle, so within
+``gain * 2 * ATAN2F_ULP`` ulps of pi plus one ulp of the scaled result;
+the atan2 full-block step's three fronts the same bytes (all three run the
+banded route).
 """
+
+import pathlib
 
 import numpy as np
 import pytest
@@ -1299,3 +1307,73 @@ def test_server_mesh_group_on_card(cuda, tmp_path, monkeypatch):
     assert where == [(k, "cuda") for k in range(4)]
     for k, g in enumerate(got):
         np.testing.assert_array_equal(g, want[k], err_msg=f"client {k}")
+
+
+# atan2f's maximum ulp error (CUDA C++ Programming Guide, single-precision
+# mathematical functions)
+ATAN2F_ULP = 3
+
+
+def atan2_tolerance(gain: float) -> float:
+    """Kernel vs plain in the atan2 form: each atan2f within ATAN2F_ULP
+    ulps of |angle| <= pi (an ulp of pi is 2^-22), times the gain, and the
+    product's rounding."""
+    return gain * 2 * ATAN2F_ULP * 2.0**-22 + float(np.spacing(np.float32(gain * np.pi)))
+
+
+@pytest.mark.cuda
+def test_quad_kernel_atan2_form(cuda):
+    """The quad-demod kernel with ``atan_lut=False`` against its plain
+    version, (0, 0) products and NaN included, within ``atan2_tolerance``;
+    the LUT form stays bit for bit."""
+    taps = DemodPipeline(FskDemodConfig(*CONFIGS["lucky7"]), 4096, device=cuda).front_taps
+    rng = np.random.default_rng(21)
+    y1 = torch.from_numpy(rng.standard_normal((4096, 2 * 130)).astype(np.float32)).to(cuda)
+    y1[100:104] = 0.0
+    y1[200, 3] = float("nan")
+    prev = torch.from_numpy(rng.standard_normal((1, 2 * 130)).astype(np.float32)).to(cuda)
+    atan = taps._replace(atan_lut=False)
+    n0 = front_ops.launches
+    got = front_ops.quad_demod(y1, prev, atan)
+    want = front_ops.quad_demod_plain(y1, prev, atan)
+    assert front_ops.launches == n0 + 1
+    assert torch.equal(torch.isnan(got), torch.isnan(want)) and torch.equal(got[100:103], want[100:103])
+    ok = ~torch.isnan(want)
+    assert (got[ok] - want[ok]).abs().max().item() <= atan2_tolerance(taps.quad_gain)
+    assert torch.equal(front_ops.quad_demod(y1, prev, taps), front_ops.quad_demod_plain(y1, prev, taps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [False, "atan2"])
+def test_atan2_step_fronts_give_the_same_bytes(cuda, mode):
+    """In the atan2 modes every front runs the banded route on the card:
+    the same bytes, B1 and B7 never launched."""
+    c, block = 130, 8192
+    pipe = DemodPipeline(FskDemodConfig(*CONFIGS["lucky7"]), block, use_atan_lut=mode, device=cuda)
+    iq = np.fromfile(pathlib.Path(__file__).resolve().parent / "fixtures" / "lucky7.expected.cf32", np.complex64)
+    x = torch.from_numpy(np.stack([iq[:block].real, iq[:block].imag]).astype(np.float32)).to(cuda)
+    runs = {}
+    f0, s0 = front_ops.fused_launches, step_ops.launches
+    for front in ("banded", "fused", "step"):
+        step = pipe.make_batched_step_full("pallas", layout="fanout", front=front)
+        state = pipe.init_full_state(c)
+        out = []
+        for _ in range(2):
+            state, sym, cnt = step(state, x)
+            out.append((sym.cpu(), cnt.cpu()))
+        runs[front] = out
+    assert front_ops.fused_launches == f0 and step_ops.launches == s0
+    for front in ("fused", "step"):
+        for (a, ca), (b, cb) in zip(runs[front], runs["banded"]):
+            assert torch.equal(a, b) and torch.equal(ca, cb)
+    assert int(runs["banded"][0][1].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_dryrun_on_repeated_cards(cuda):
+    """The dry run of ``tools/graft_entry.py`` on a mesh of 2 shards of the
+    card, every case equal to the unsharded step."""
+    from sdrmodem_tpu_torch.tools import graft_entry
+
+    report = graft_entry.dryrun_multichip(2, devices=[cuda, cuda])
+    assert report["d_pipelined"]["schedule"]["idle_device_rounds"] == 0

@@ -64,7 +64,9 @@ def test_import_pulls_in_no_jax():
         "from sdrmodem_tpu_torch.devices import plutosdr, sdr_server_client\n"
         "from sdrmodem_tpu_torch.utils import native, queue, checkpoint, tree\n"
         "from sdrmodem_tpu_torch.parallel import mesh, channels, time_shard\n"
-        "from sdrmodem_tpu_torch.tools import parity as parity_tool, multihost\n"
+        "from sdrmodem_tpu_torch.tools import parity as parity_tool, multihost, graft_entry, perf\n"
+        "from sdrmodem_tpu_torch.tools import latency, ber_sweep, trace, profile_step\n"
+        "from sdrmodem_tpu_torch.tools import profile_front, profile_variants\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'sdrmodem_tpu.'))"
         " or m == 'sdrmodem_tpu']\n"
         "assert not bad, bad\n"
@@ -84,7 +86,12 @@ def test_sources_import_nothing_of_the_jax_package():
                  "sdrmodem_tpu_torch/devices/plutosdr.py", "sdrmodem_tpu_torch/utils/native.py",
                  "sdrmodem_tpu_torch/parallel/mesh.py", "sdrmodem_tpu_torch/parallel/channels.py",
                  "sdrmodem_tpu_torch/parallel/time_shard.py", "sdrmodem_tpu_torch/utils/checkpoint.py",
-                 "sdrmodem_tpu_torch/tools/parity.py", "sdrmodem_tpu_torch/tools/multihost.py"):
+                 "sdrmodem_tpu_torch/tools/parity.py", "sdrmodem_tpu_torch/tools/multihost.py",
+                 "sdrmodem_tpu_torch/tools/graft_entry.py", "sdrmodem_tpu_torch/tools/perf.py",
+                 "sdrmodem_tpu_torch/tools/latency.py", "sdrmodem_tpu_torch/tools/ber_sweep.py",
+                 "sdrmodem_tpu_torch/tools/trace.py", "sdrmodem_tpu_torch/tools/profile_step.py",
+                 "sdrmodem_tpu_torch/tools/profile_front.py",
+                 "sdrmodem_tpu_torch/tools/profile_variants.py"):
         assert want in names
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -411,3 +411,88 @@ def test_time_shard_refuses_blocks_shorter_than_a_history():
     iq = np.zeros((1, 8192), np.complex64)
     with pytest.raises(ValueError, match="history"):
         time_shard.demod_pipelined(iq, CFG, cpu_mesh(8))
+
+
+# ---- the arctangent mode on the time shard and the channel class
+
+
+def _halo_front(streams, n_dev, mode):
+    """``demod_pipelined``'s front as its shards compute it, ``_front_halo``
+    over the skewed layout, regrouped as each stream's blocks in time order:
+    [stream][block] -> y3 (rows,)."""
+    x_skew, _, block, k = time_shard._skewed_layout(streams, None, CFG, n_dev)
+    lanes = x_skew.shape[2] // 2
+    pipe = DemodPipeline(CFG, block, use_atan_lut=mode, device="cpu")
+    mesh = cpu_mesh(n_dev)
+    shards = [time_shard._Shard(pipe, p, k, lanes) for p in range(n_dev)]
+    soft = time_shard._front_halo(mesh, shards, mesh.put(x_skew), None)
+    return [[soft[(s // k + dd) % n_dev][:, s] for dd in range(n_dev)] for s in range(len(streams))]
+
+
+def _banded_front_blocks(streams, block, mode):
+    """Each stream through the port's unsharded banded front at ``block``,
+    the state carried: [stream][block] -> y3 (rows,)."""
+    from sdrmodem_tpu_torch.ops.front import banded_front
+
+    s, n = streams.shape
+    pipe = DemodPipeline(CFG, block, use_atan_lut=mode, device="cpu")
+    state = pipe.init_full_state(s)[:4]
+    out = [[] for _ in range(s)]
+    for t in range(n // block):
+        part = streams[:, t * block : (t + 1) * block]
+        x = torch.from_numpy(np.concatenate([part.real.T, part.imag.T], axis=1).astype(np.float32))
+        y3, state = banded_front(x, *state, pipe.front_taps)
+        for k in range(s):
+            out[k].append(y3[:, k])
+    return out
+
+
+def test_time_shard_front_takes_the_arctangent_mode(resources_dir):
+    """``demod_pipelined(use_atan_lut="atan2")``: the halo front on 2 shards
+    equals the unsharded banded front in "atan2" bit for bit and is not the
+    LUT's; the streams' symbols equal the unsharded "atan2" step's and are
+    within JAX's tolerance of JAX's ``demod_pipelined`` in the same mode
+    (``jnp.arctan2`` in its ``_front_full_halo``)."""
+    n_dev, n = 2, 16384
+    streams = noisy_streams(fixture(resources_dir, "lucky7.expected.cf32"), 2, n, 1024, 11)
+    halo = _halo_front(streams, n_dev, "atan2")
+    alone = _banded_front_blocks(streams, n // n_dev, "atan2")
+    lut = _halo_front(streams, n_dev, True)
+    for s in range(2):
+        for dd in range(n_dev):
+            assert torch.equal(halo[s][dd], alone[s][dd]), f"stream {s} block {dd}"
+            assert not torch.equal(halo[s][dd], lut[s][dd]), f"stream {s} block {dd}: the LUT's y3"
+    outs = time_shard.demod_pipelined(streams, CFG, cpu_mesh(n_dev), clock_backend="scan", use_atan_lut="atan2")
+    pipe = DemodPipeline(CFG, n // n_dev, use_atan_lut="atan2", device="cpu")
+    step = pipe.make_batched_step_full("scan", layout="tm")
+    state = pipe.init_full_state(2)
+    ref = [[], []]
+    for t in range(n_dev):
+        part = streams[:, t * (n // n_dev) : (t + 1) * (n // n_dev)]
+        x = torch.from_numpy(np.concatenate([part.real.T, part.imag.T], axis=1).astype(np.float32))
+        state, sym, cnt = step(state, x)
+        for k in range(2):
+            ref[k].append(collect(sym, cnt, k))
+    jouts = jax_time.demod_pipelined(streams, JCFG, jax_mesh(n_dev, "time"), clock_backend="scan",
+                                     use_atan_lut="atan2")
+    for s in range(2):
+        np.testing.assert_array_equal(outs[s], np.concatenate(ref[s]), err_msg=f"stream {s}")
+        within_jax_tolerance(outs[s], jouts[s], f"stream {s}")
+    grid = time_shard.demod_grid_sharded(streams, CFG, [cpu_mesh(n_dev)] * 2, clock_backend="scan",
+                                         use_atan_lut="atan2")
+    for s in range(2):
+        np.testing.assert_array_equal(grid[s], outs[s], err_msg=f"grid channel {s}")
+
+
+def test_channel_sharded_full_takes_the_arctangent_mode(resources_dir):
+    """``ShardedChannelDemodFull(use_atan_lut="atan2")`` runs (the banded
+    route a shard) and equals the unsharded "atan2" step bit for bit."""
+    iq = fixture(resources_dir, "lucky7.expected.cf32")
+    channels, block = 4, 4096
+    lanes = np.stack([iq[k * 3000 : k * 3000 + block] for k in range(channels)])
+    sharded = ShardedChannelDemodFull(CFG, block, channels, cpu_mesh(2, "channel"), use_atan_lut="atan2")
+    _, symbols, counts = sharded.step(sharded.init_state(), sharded.place_input(lanes))
+    pipe = DemodPipeline(CFG, block, use_atan_lut="atan2", device="cpu")
+    x = torch.from_numpy(np.stack([lanes.real, lanes.imag], axis=1).astype(np.float32))
+    _, sym, cnt = pipe.make_batched_step_full()(pipe.init_full_state(channels), x)
+    assert torch.equal(symbols, sym) and torch.equal(counts, cnt) and int(cnt.sum()) > 0

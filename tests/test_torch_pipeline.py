@@ -16,6 +16,19 @@
   row-free lane bit-equal to the step without Doppler.
 - The server's own call, ``make_batched_step_full("pallas", doppler=True,
   layout="fanout")``.
+- The atan2 arctangent modes (``use_atan_lut`` False or "atan2") on the
+  full-block step, every front taking the banded route: against JAX's
+  banded step in the same mode (``jnp.arctan2``), y3 within 1e-5 (f32 FIRs
+  summed in another order, ~3e-6 seen; JAX's FIRs at
+  SDRM_FIR_PRECISION=highest), symbols within +-1 LSB and counts equal;
+  against JAX's fused step (its kernel's ``atan2_poly``, interpret mode)
+  within +-2 LSB; the three fronts the same bytes; y3 not the LUT's.  The
+  four goldens in "atan2": within +-2 LSB with hard decisions 1.0, but for
+  lucky7_nodc, whose clock lock over symbols 6319-6389 turns on the last
+  ulp of y3 (the golden was recorded with the table): there torch.atan2
+  moves 71 symbols up to 19 LSB (JAX's banded "atan2" step stays within 1
+  LSB, its fused step's ``atan2_poly`` moves the same 71), so only that
+  stretch may leave the bound.
 """
 
 import numpy as np
@@ -29,12 +42,20 @@ from sdrmodem_tpu.dsp.fsk_demod import FskDemodConfig as JaxConfig
 from sdrmodem_tpu.dsp.pipeline import DemodPipeline as JaxPipeline
 from sdrmodem_tpu_torch import DemodPipeline, FskDemodConfig
 from sdrmodem_tpu_torch.dsp.doppler import Doppler
+from sdrmodem_tpu_torch.dsp.pipeline import DemodStateFull
+from sdrmodem_tpu_torch.ops import front as front_ops
 from sdrmodem_tpu_torch.utils.convert import (
     doppler_tables_from_numpy,
     full_state_from_numpy,
     segment_tables,
 )
-from sdrmodem_tpu_torch.utils.parity import GOLDEN_CASES, demod_capture, golden_report
+from sdrmodem_tpu_torch.utils.parity import (
+    GOLDEN_CASES,
+    NODC_STRETCH,
+    atan2_golden_failures,
+    demod_capture,
+    golden_report,
+)
 from tests.test_torch_doppler import ARGS
 from tests.test_torch_fir import one_thread  # noqa: F401 (torch on one thread)
 
@@ -267,9 +288,13 @@ def test_server_call_runs_on_the_port():
     cfg = FskDemodConfig(*LUCKY7)
     with pytest.raises(ValueError, match="float32-only"):
         DemodPipeline(cfg, block, exact=True, device="cpu").make_batched_step_full("pallas")
+    # the atan2 modes run on every front (the banded route), as in the JAX package
     for mode in (False, "atan2"):
-        with pytest.raises(NotImplementedError, match="LUT arctangent only"):
-            DemodPipeline(cfg, block, use_atan_lut=mode, device="cpu").make_batched_step_full()
+        atan = DemodPipeline(cfg, block, use_atan_lut=mode, device="cpu")
+        for front in ("fused", "banded", "step"):
+            _, sym_a, cnt_a = atan.make_batched_step_full(layout="fanout", front=front)(
+                atan.init_full_state(c), x)
+            assert sym_a.shape[0] == cnt_a.shape[0] == c and int(cnt_a.sum()) > 0
     with pytest.raises(ValueError, match="arctangent mode 'null'"):
         DemodPipeline(cfg, block, use_atan_lut="null", device="cpu")
     # the ragged path takes any block; the full-block path needs block % d == 0
@@ -278,3 +303,195 @@ def test_server_call_runs_on_the_port():
     for make in (odd.init_full_state, lambda c: odd.make_batched_step_full()):
         with pytest.raises(ValueError, match="block % decimation"):
             make(2)
+
+
+# ---- the atan2 arctangent modes on the full-block step
+
+NAN_CFG = (240000, 9600, 5000, 1, 2000, True)
+# config, capture, blocks, samples between lanes' starts: lucky7 over two
+# blocks, lanes 1000 samples apart; the nan capture as its golden takes it,
+# one block of 4096 on every lane (rolled, its ~3.4e38 samples overflow
+# where the two packages' FIRs round apart, in either arctangent mode)
+ATAN2_CASES = {"lucky7": (LUCKY7, "lucky7.expected.cf32", 2, 1000), "nan": (NAN_CFG, "inputnan.cf32", 1, 0)}
+ATAN2_LANES, ATAN2_BLOCK = 4, 4096
+ATAN2_Y3_ATOL = 1e-5
+
+
+def _atan2_blocks(resources_dir, name, cp):
+    """The case's time-major (B, 2cp) blocks, lanes past ATAN2_LANES zero
+    (JAX pads to cp)."""
+    _, fin, blocks, apart = ATAN2_CASES[name]
+    iq = np.fromfile(resources_dir / fin, np.complex64)
+    n = blocks * ATAN2_BLOCK
+    lanes = np.stack([np.resize(np.roll(iq, -apart * k), n) for k in range(ATAN2_LANES)], axis=1)
+    out = []
+    for b in range(blocks):
+        x = np.zeros((ATAN2_BLOCK, 2 * cp), np.float32)
+        part = lanes[b * ATAN2_BLOCK : (b + 1) * ATAN2_BLOCK]
+        x[:, :ATAN2_LANES], x[:, cp : cp + ATAN2_LANES] = part.real, part.imag
+        out.append(x)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_atan2(resources_dir):
+    """JAX's "atan2" runs, once: y3 of the banded front and the symbols of
+    its banded and fused steps (``clock_backend="scan"``, interpret mode)."""
+    refs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SDRM_FIR_PRECISION", "highest")
+        for name, (cfg, *_) in ATAN2_CASES.items():
+            jpipe = JaxPipeline(JaxConfig(*cfg), ATAN2_BLOCK, exact=False, use_atan_lut="atan2")
+            xs = [jnp.asarray(x) for x in _atan2_blocks(resources_dir, name, 128)]
+            st = jpipe.init_full_state(ATAN2_LANES)
+            y3s = []
+            for x in xs:
+                front, y3 = jpipe._front_batched_full(st, x, interpret=True)
+                st = st._replace(lpf1_hist=front[0], quad_prev=front[1], lpf2_hist=front[2], dc_hist=front[3])
+                y3s.append(np.asarray(y3)[:, :ATAN2_LANES])
+            runs = {}
+            for front in ("banded", "fused"):
+                step = jpipe.make_batched_step_full("scan", interpret=True, layout="tm", front=front)
+                st = jpipe.init_full_state(ATAN2_LANES)
+                runs[front] = []
+                for x in xs:
+                    st, sym, cnt = step(st, x)
+                    runs[front].append((np.asarray(sym)[:ATAN2_LANES], np.asarray(cnt)[:ATAN2_LANES]))
+            refs[name] = dict(y3=y3s, **runs)
+    return refs
+
+
+def _port_atan2_run(resources_dir, name, mode="atan2", front="banded"):
+    """The port's step in ``mode`` over the case's blocks: (y3s, [(symbols,
+    counts)]) with the banded front's y3 a block."""
+    pipe = DemodPipeline(FskDemodConfig(*ATAN2_CASES[name][0]), ATAN2_BLOCK, use_atan_lut=mode, device="cpu")
+    xs = [torch.from_numpy(x) for x in _atan2_blocks(resources_dir, name, ATAN2_LANES)]
+    step = pipe.make_batched_step_full("scan", layout="tm", front=front)
+    st = fst = pipe.init_full_state(ATAN2_LANES)
+    y3s, runs = [], []
+    for x in xs:
+        y3, front_state = front_ops.banded_front(x, *fst[:4], pipe.front_taps)
+        fst = DemodStateFull(*front_state, fst.clock)
+        y3s.append(y3.numpy())
+        st, sym, cnt = step(st, x)
+        runs.append((sym.numpy(), cnt.numpy()))
+    return y3s, runs
+
+
+def _lanes_of(runs, lane):
+    return np.concatenate([sym[lane, t, : cnt[lane, t]] for sym, cnt in runs for t in range(cnt.shape[1])])
+
+
+@pytest.mark.parametrize("name", list(ATAN2_CASES))
+def test_atan2_step_matches_jax_banded(resources_dir, jax_atan2, name):
+    """The port's banded step in "atan2" against JAX's banded step in the
+    same mode: y3 within ATAN2_Y3_ATOL where both are finite (lucky7's
+    everywhere), counts equal, symbols within +-1 LSB; and y3 is not the
+    LUT's, so the mode reaches the quad stage."""
+    ref = jax_atan2[name]
+    y3s, runs = _port_atan2_run(resources_dir, name)
+    lut_y3s, _ = _port_atan2_run(resources_dir, name, mode=True)
+    for y3, jy3, lut in zip(y3s, ref["y3"], lut_y3s):
+        both = np.isfinite(y3) & np.isfinite(jy3)
+        assert both.all() if name == "lucky7" else both.any()
+        np.testing.assert_allclose(y3[both], jy3[both], rtol=0, atol=ATAN2_Y3_ATOL)
+        assert not np.array_equal(y3[both], lut[both])
+    for (sym, cnt), (jsym, jcnt) in zip(runs, ref["banded"]):
+        np.testing.assert_array_equal(cnt, jcnt)
+    for lane in range(ATAN2_LANES):
+        got, want = _lanes_of(runs, lane), _lanes_of(ref["banded"], lane)
+        assert len(got) > 0
+        assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1, f"lane {lane}"
+
+
+@pytest.mark.parametrize("name", list(ATAN2_CASES))
+def test_atan2_step_within_two_lsb_of_jax_fused(resources_dir, jax_atan2, name):
+    """Against JAX's fused step, whose kernel takes ``atan2_poly``: the same
+    counts a lane and symbols within +-2 LSB."""
+    _, runs = _port_atan2_run(resources_dir, name, front="fused")
+    for lane in range(ATAN2_LANES):
+        got, want = _lanes_of(runs, lane), _lanes_of(jax_atan2[name]["fused"], lane)
+        assert len(got) == len(want) > 0
+        assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 2, f"lane {lane}"
+
+
+@pytest.mark.parametrize("mode", [False, "atan2"])
+def test_atan2_fronts_take_the_banded_route(resources_dir, mode):
+    """In either atan2 mode ``front="fused"`` and ``"step"`` run the banded
+    front (B1 and B7 take the table only) and give its bytes; the fused
+    kernels' wrappers refuse the mode."""
+    pipe = DemodPipeline(FskDemodConfig(*LUCKY7), ATAN2_BLOCK, use_atan_lut=mode, device="cpu")
+    assert not pipe.fused_front_available() and not pipe.fused_step_available(ATAN2_LANES, 256)
+    runs = {front: _port_atan2_run(resources_dir, "lucky7", mode, front)[1] for front in ("banded", "fused", "step")}
+    for front in ("fused", "step"):
+        for (sym, cnt), (bsym, bcnt) in zip(runs[front], runs["banded"]):
+            np.testing.assert_array_equal(sym, bsym)
+            np.testing.assert_array_equal(cnt, bcnt)
+    st = pipe.init_full_state(ATAN2_LANES)
+    x = torch.zeros((ATAN2_BLOCK, 2 * ATAN2_LANES))
+    with pytest.raises(ValueError, match="LUT arctangent only"):
+        front_ops.fused_front(x, *st[:4], pipe.front_taps)
+
+
+def test_quad_stage_carries_the_mode():
+    """The quad stage's plain version is ``atan2_dispatch`` in the taps'
+    mode: torch.atan2 with (0, 0) -> 0 where ``atan_lut`` is False, the
+    table where it is True."""
+    from sdrmodem_tpu_torch.dsp.elementwise import atan2_dispatch
+
+    rng = np.random.default_rng(3)
+    y1 = torch.from_numpy(rng.standard_normal((64, 2 * ATAN2_LANES)).astype(np.float32))
+    y1[5:9] = 0.0  # (0, 0) products
+    prev = torch.from_numpy(rng.standard_normal((1, 2 * ATAN2_LANES)).astype(np.float32))
+    taps = DemodPipeline(FskDemodConfig(*LUCKY7), 64, device="cpu").front_taps
+    c = ATAN2_LANES
+    shifted = torch.cat([prev, y1[:-1]])
+    re = y1[:, :c] * shifted[:, :c] + y1[:, c:] * shifted[:, c:]
+    im = y1[:, c:] * shifted[:, :c] - y1[:, :c] * shifted[:, c:]
+    for lut in (True, False):
+        got = front_ops.quad_demod(y1, prev, taps._replace(atan_lut=lut))
+        want = taps.quad_gain * atan2_dispatch(im, re, lut, taps.atan_table)
+        assert torch.equal(got, want)
+    atan = front_ops.quad_demod(y1, prev, taps._replace(atan_lut=False))
+    assert torch.equal(atan[5:8], torch.zeros_like(atan[5:8]))
+    assert torch.equal(atan, taps.quad_gain * torch.where((im == 0) & (re == 0), 0.0, torch.atan2(im, re)))
+    assert not torch.equal(atan, front_ops.quad_demod(y1, prev, taps))
+
+
+@pytest.mark.parametrize("name,cfg,fin,fexp,block", GOLDEN_CASES, ids=[c[0] for c in GOLDEN_CASES])
+def test_atan2_golden_fixture(resources_dir, name, cfg, fin, fexp, block):
+    """The goldens through the "atan2" step (the banded route): every
+    fixture within +-2 LSB, hard decisions 1.0, but lucky7_nodc's
+    ``NODC_STRETCH``."""
+    iq = np.fromfile(resources_dir / fin, dtype=np.complex64)
+    golden = np.fromfile(resources_dir / fexp, dtype=np.int8)
+    rep = golden_report(demod_capture(DemodPipeline(cfg, block, use_atan_lut="atan2", device="cpu"), iq), golden)
+    assert atan2_golden_failures(name, rep) == [], rep
+    if name == "lucky7_nodc" and rep["beyond_tol_span"] is not None:
+        assert rep["beyond_tol_rate"] <= (NODC_STRETCH[1] - NODC_STRETCH[0] + 1) / len(golden)
+    bad = dict(rep, beyond_tol_span=[100, 120], max_lsb=5)
+    assert atan2_golden_failures(name, bad)  # anywhere else the bound holds
+
+
+def test_kernel_arguments_are_contiguous(monkeypatch):
+    """What the wrappers hand a kernel is contiguous (the kernels read each
+    tensor through its pointer; the plain versions would not notice): the
+    "cm" layout at one channel, and a batched ``FskDemodulator``'s fresh
+    clock state (expanded leaves) on its way to B4."""
+    from sdrmodem_tpu_torch import FskDemodulator
+    from sdrmodem_tpu_torch.dsp import clock_recovery
+
+    pipe = DemodPipeline(FskDemodConfig(*LUCKY7), 2048, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((1, 2, 2048)).astype(np.float32))
+    assert pipe.to_time_major(x, 1, "cm").is_contiguous()
+    real = clock_recovery.clock_mm_tpu
+    seen = []
+
+    def checked(*args, **kw):
+        seen.extend(a.is_contiguous() for a in args if isinstance(a, torch.Tensor))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(clock_recovery, "clock_mm_tpu", checked)
+    iq = np.random.default_rng(0).standard_normal((4, 4096)) + 1j * np.random.default_rng(1).standard_normal((4, 4096))
+    FskDemodulator(FskDemodConfig(*LUCKY7), exact=False, device="cpu").process(iq.astype(np.complex64))
+    assert seen and all(seen)

@@ -1,5 +1,6 @@
 """The port's tools and checkpoints on the CPU: ``tools/parity.py``,
-``utils/checkpoint.py``, and the new entry points' device choice.
+``utils/checkpoint.py``, and the entry points' device choice (the twins of
+the JAX tools among them; their reports: ``test_torch_tools_a6.py``).
 
 - The parity tool's gate passes on the goldens in both modes, fails (exit
   1) on symbols beyond the bound, and its per-fixture numbers and gate are
@@ -228,7 +229,17 @@ def test_new_entry_points_take_the_card():
     from sdrmodem_tpu_torch.parallel.mesh import Mesh
     from sdrmodem_tpu_torch.server.config import ServerConfig
     from sdrmodem_tpu_torch.server.tcp_server import SdrModemServer
-    from sdrmodem_tpu_torch.tools import multihost
+    from sdrmodem_tpu_torch.tools import (
+        ber_sweep,
+        graft_entry,
+        latency,
+        multihost,
+        perf,
+        profile_front,
+        profile_step,
+        profile_variants,
+        trace,
+    )
 
     cfg = FskDemodConfig(*LUCKY7)
     if torch.cuda.is_available():
@@ -242,7 +253,15 @@ def test_new_entry_points_take_the_card():
         lambda: parity.main(["--cases", "nan"]),
         lambda: multihost.main(["--streams", "4", "--samples", "16384"]),
         lambda: SdrModemServer(ServerConfig(), device="cpu", devices=["cuda", "cuda"]),
+        lambda: graft_entry.entry(),
+        lambda: graft_entry.dryrun_multichip(2),
     ]
+    # each twin of the JAX tools, as ``python -m`` runs it without --device
+    calls += [lambda tool=tool: tool.main(args) for tool, args in (
+        (graft_entry, ["--devices", "2"]), (perf, ["--small"]), (latency, ["--reps", "1"]),
+        (ber_sweep, ["--snrs", "0"]), (trace, ["--steps", "1"]), (profile_step, []), (profile_front, []),
+        (profile_variants, []),
+    )]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
