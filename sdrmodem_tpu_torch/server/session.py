@@ -46,6 +46,7 @@ from sdrmodem_tpu_torch.server import wire
 from sdrmodem_tpu_torch.server.config import RxSdrType, ServerConfig
 from sdrmodem_tpu_torch.utils.convert import doppler_tables_from_numpy, segment_tables
 from sdrmodem_tpu_torch.utils.queue import BufferQueue
+from sdrmodem_tpu_torch.utils import spans
 
 log = logging.getLogger("sdrmodem.session")
 
@@ -163,10 +164,9 @@ class RxSession:
         self.task: asyncio.Task | None = None
         self.finished = asyncio.Event()
         # observability counters (the reference logs per-client byte totals;
-        # SURVEY §5 adds running samples/s, queue drops and clock overflows)
+        # SURVEY §5 adds running samples/s and queue drops)
         self.samples_in = 0
         self.symbols_out = 0
-        self.overflow_events = 0  # clock-kernel healed-overflow chunks
         self._rate_t0 = time.monotonic()
         self._rate_samples = 0
         self._rate_interval = 10.0  # seconds between samples/s log lines
@@ -181,13 +181,18 @@ class RxSession:
         if dt >= self._rate_interval:
             log.info(
                 "[%d] rx rate %.3f Msamples/s | totals: %d samples in, "
-                "%d symbols out, %d queue drops, %d clock overflows",
+                "%d symbols out, %d queue drops",
                 self.id, self._rate_samples / dt / 1e6,
-                self.samples_in, self.symbols_out,
-                self.queue.dropped, self.overflow_events,
+                self.samples_in, self.symbols_out, self.queue_drops,
             )
             self._rate_t0 = now
             self._rate_samples = 0
+
+    @property
+    def queue_drops(self) -> int:
+        """Buffers dropped on the way to this session: in fast mode its
+        group's queue (the session's own queue is never fed there)."""
+        return self.group.queue.dropped if self.group is not None else self.queue.dropped
 
     def start(self):
         if self.mode == "fast":
@@ -224,18 +229,23 @@ class RxSession:
         into SdrStream._run and kill the reader for EVERY client."""
         if self.finished.is_set():
             return
-        self.symbols_out += len(symbols)
-        if self.demod_dump is not None:
-            try:
-                self.demod_dump.write(symbols.tobytes())
-            except ValueError:  # closed by stop() mid-step
+        with spans.span("sdrm.session.emit"):
+            self.symbols_out += len(symbols)
+            if self.demod_dump is not None:
+                try:
+                    self.demod_dump.write(symbols.tobytes())
+                except ValueError:  # closed by stop() mid-step
+                    return
+            if not self.to_socket or self.writer is None:
                 return
-        if self.to_socket and self.writer is not None:
             try:
                 self.writer.write(symbols.tobytes())
-                await self.writer.drain()
             except (ConnectionError, RuntimeError):
-                pass  # teardown arrives via the control loop
+                return  # teardown arrives via the control loop
+        try:
+            await self.writer.drain()
+        except (ConnectionError, RuntimeError):
+            pass
 
     async def _run(self):
         log.info("[%d] dsp_worker is starting", self.id)
@@ -290,7 +300,7 @@ class RxSession:
             log.info(
                 "[%d] dsp_worker stopped (%d samples in, %d symbols out, "
                 "%d queue drops)",
-                self.id, self.samples_in, self.symbols_out, self.queue.dropped,
+                self.id, self.samples_in, self.symbols_out, self.queue_drops,
             )
 
     def _correct(self, bufs: list[np.ndarray]) -> list[np.ndarray]:
@@ -313,8 +323,8 @@ class RxSession:
             self.demod_dump.close()
         log.info(
             "[%d] dsp_worker stopped (%d samples in, %d symbols out, "
-            "%d clock overflows)",
-            self.id, self.samples_in, self.symbols_out, self.overflow_events,
+            "%d queue drops)",
+            self.id, self.samples_in, self.symbols_out, self.queue_drops,
         )
 
     async def stop(self):
@@ -419,10 +429,6 @@ class BatchedRxGroup:
         self._pending_resets: set[int] = set()
         self.acc = np.zeros(block, np.complex64)
         self.fill = 0
-        # per-lane clock-overflow totals as of the previous step, to turn
-        # the cumulative counter into per-step deltas (the port's clock has
-        # no window to overflow, so they stay 0)
-        self._overflow_prev = np.zeros(self.LANES, np.float32)
 
     @property
     def sharded(self) -> bool:
@@ -504,18 +510,26 @@ class BatchedRxGroup:
         """Accumulate a stream buffer; enqueue every filled block for the
         worker task.  Returns as soon as the data is copied (lossy mode) or
         queue space exists (blocking mode) — the reader never waits for the
-        device step itself (reference src/queue.c:168-200)."""
+        device step itself (reference src/queue.c:168-200).
+
+        A block goes into the queue as (the time it was put, its samples).
+        The span ``sdrm.group.feed`` covers the copies up to one filled
+        block and closes before its put."""
         buf = np.asarray(buf, np.complex64)
         i = 0
         while i < len(buf):
-            take = min(self.block - self.fill, len(buf) - i)
-            self.acc[self.fill : self.fill + take] = buf[i : i + take]
-            self.fill += take
-            i += take
-            if self.fill == self.block:
-                self.fill = 0
+            with spans.span("sdrm.group.feed"):
+                take = min(self.block - self.fill, len(buf) - i)
+                self.acc[self.fill : self.fill + take] = buf[i : i + take]
+                self.fill += take
+                i += take
+                block = None
+                if self.fill == self.block:
+                    self.fill = 0
+                    block = self.acc.copy()
+            if block is not None:
                 self._ensure_worker()
-                await self.queue.put(self.acc.copy())
+                await self.queue.put((time.perf_counter(), block))
 
     def _ensure_worker(self):
         if self._worker_task is None or self._worker_task.done():
@@ -528,9 +542,11 @@ class BatchedRxGroup:
         pill (the dsp_worker thread analog, src/dsp_worker.c:44-106)."""
         try:
             while True:
-                block = await self.queue.take()
-                if block is None:
+                item = await self.queue.take()
+                if item is None:
                     break
+                t_put, block = item
+                spans.add("group.queue_wait_s", time.perf_counter() - t_put)
                 await self._step_block(block)
                 self.blocks_processed += 1
         except asyncio.CancelledError:
@@ -548,60 +564,61 @@ class BatchedRxGroup:
             await self._worker_task
 
     async def _step_block(self, acc: np.ndarray):
-        # apply lane resets queued by attach(); the single worker task
-        # processes blocks serially, so no step can be mid-flight here
-        for lane in self._pending_resets:
-            self._reset_lane(lane)
-            self._overflow_prev[lane] = 0.0
-        self._pending_resets.clear()
-        sessions = {
-            lane: s for lane, s in self.lanes.items() if not s.finished.is_set()
-        }
-        if not sessions:
-            return
-        # one shared (2, block) pair — the step broadcasts it to all lanes
-        x = np.stack([acc.real, acc.imag]).astype(np.float32)
-        # per-lane Doppler as device NCO tables: the host only runs the
-        # 1 Hz SGP4 bookkeeping (cheap scalars), the mix itself happens
-        # on the device inside the batched step — no serialized per-lane
-        # host math (reference applies it in-stream, doppler.c:164-186)
-        rows = {}
-        for lane, s in sessions.items():
-            s.note_progress(self.block)
-            if s.doppler is not None:
-                rows[lane] = s.doppler.device_segments(self.block, +1)
-        self.state, symbols, counts, overflow = await asyncio.to_thread(
-            self._step_host, x, segment_tables(rows, self.dop_rows, self.LANES)
-        )
-        # clock overflows: the counter is cumulative per lane; surface
-        # per-step deltas to the owning session (the JAX package's clock
-        # re-runs an overflowed chunk on the full window; the port's clock
-        # has no window, so its counter stays 0 and nothing is logged)
-        deltas = overflow - self._overflow_prev
-        self._overflow_prev = overflow
-        for lane, s in sessions.items():
-            if deltas[lane] > 0:
-                s.overflow_events += int(deltas[lane])
-                log.warning(
-                    "[%d] clock-recovery window overflow healed (%d chunks "
-                    "re-run; %d total for this session)",
-                    s.id, int(deltas[lane]), s.overflow_events,
-                )
+        """Step a block for every live lane and emit each lane's symbols.
+
+        Its spans: ``sdrm.group.rows`` (the lane resets, the stream's
+        (2, B) pair and each lane's Doppler rows and tables),
+        ``sdrm.group.step`` (``_step_host`` in a worker thread: the one
+        span that crosses an await, so with several groups on one loop
+        another group's spans can fall inside it), ``sdrm.group.split``
+        (every lane's symbols gathered from its chunks), then each
+        session's ``sdrm.session.emit``.  The counter ``group.blocks``
+        counts the blocks stepped: the spans' totals are read a block."""
+        with spans.span("sdrm.group.rows"):
+            # apply lane resets queued by attach(); the single worker task
+            # processes blocks serially, so no step can be mid-flight here
+            for lane in self._pending_resets:
+                self._reset_lane(lane)
+            self._pending_resets.clear()
+            sessions = {
+                lane: s for lane, s in self.lanes.items() if not s.finished.is_set()
+            }
+            if not sessions:
+                return
+            # one shared (2, block) pair — the step broadcasts it to all lanes
+            x = np.stack([acc.real, acc.imag]).astype(np.float32)
+            # per-lane Doppler as device NCO tables: the host only runs the
+            # 1 Hz SGP4 bookkeeping (cheap scalars), the mix itself happens
+            # on the device inside the batched step — no serialized per-lane
+            # host math (reference applies it in-stream, doppler.c:164-186)
+            rows = {}
+            for lane, s in sessions.items():
+                s.note_progress(self.block)
+                if s.doppler is not None:
+                    rows[lane] = s.doppler.device_segments(self.block, +1)
+            dop = segment_tables(rows, self.dop_rows, self.LANES)
+        with spans.span("sdrm.group.step"):
+            self.state, symbols, counts = await asyncio.to_thread(self._step_host, x, dop)
+        spans.add("group.blocks", 1)
         # symbols: (C, n_chunks, K_c) with per-(lane, chunk) valid counts
-        for lane, s in sessions.items():
-            parts = [
-                symbols[lane, t, : counts[lane, t]]
-                for t in range(counts.shape[1])
-                if counts[lane, t]
-            ]
-            if parts:
-                await s.emit(np.concatenate(parts))
+        with spans.span("sdrm.group.split"):
+            out = []
+            for lane, s in sessions.items():
+                parts = [
+                    symbols[lane, t, : counts[lane, t]]
+                    for t in range(counts.shape[1])
+                    if counts[lane, t]
+                ]
+                if parts:
+                    out.append((s, np.concatenate(parts)))
+        for s, lane_symbols in out:
+            await s.emit(lane_symbols)
 
     def _step_host(self, x: np.ndarray, dop):
         """One step on the devices: (state', symbols (C, n_chunks, K) int8,
-        counts (C, n_chunks) int32, overflow (C,) float32), numpy out.  Each
-        shard steps the shared block and its lanes' Doppler rows on its
-        device; its outputs come back in one host copy each."""
+        counts (C, n_chunks) int32), numpy out.  Each shard steps the shared
+        block and its lanes' Doppler rows on its device; its outputs come
+        back in one host copy each."""
         states = self.state if self.sharded else (self.state,)
         xs = {}
         outs = []
@@ -614,9 +631,7 @@ class BatchedRxGroup:
         new = tuple(o[0] for o in outs)
         symbols = np.concatenate([o[1].cpu().numpy() for o in outs])
         counts = np.concatenate([o[2].cpu().numpy() for o in outs])
-        # np.concatenate copies: _overflow_prev is written in place on lane resets
-        overflow = np.concatenate([s.clock.overflow.cpu().numpy() for s in new]).astype(np.float32)
-        return (new if self.sharded else new[0]), symbols, counts, overflow
+        return (new if self.sharded else new[0]), symbols, counts
 
 
 class SdrStream:

@@ -553,8 +553,8 @@ def test_rx_internal_error(tmp_path, case):
 
 
 def test_observability_counters(tmp_path):
-    """Running samples/s log lines, queue-drop and overflow counters on
-    the session (SURVEY §5)."""
+    """Running samples/s log lines and queue-drop counters on the session
+    (SURVEY §5)."""
     import logging
 
     async def body():
@@ -581,6 +581,48 @@ def test_observability_counters(tmp_path):
         assert sess.samples_in == 96000
         assert any("rx rate" in m and "queue drops" in m for m in records)
         await sess.stop()
+
+    asyncio.run(body())
+
+
+def test_fast_session_reports_its_group_drops(tmp_path):
+    """A fast session's rate and stop lines count the drops of its group's
+    queue, the queue fast mode feeds (the session's own is never fed)."""
+    import logging
+
+    from tests.test_torch_server_fast import stall
+
+    async def body():
+        cfg = make_config(tmp_path, demod_mode="fast", buffer_size=2048)
+        sess = session_mod.RxSession(7, rx_request(), cfg, writer=None, dsp_device="cpu")
+        group = session_mod.BatchedRxGroup(sess.fsk_config, 2048, queue_capacity=2, device="cpu")
+        group.attach(sess)
+        entered, release = stall(group)
+        buf = np.zeros(2048, np.complex64)
+        await group.feed(buf)
+        await asyncio.to_thread(entered.wait, 60)
+        for _ in range(4):  # capacity 2, the step held: the lossy queue drops
+            await group.feed(buf)
+        drops = group.queue.dropped
+        assert drops >= 2 and sess.queue.dropped == 0
+
+        sess._rate_interval = 0.0
+        records = []
+        handler = logging.Handler()
+        handler.emit = lambda r: records.append(r.getMessage())
+        session_mod.log.addHandler(handler)
+        old_level = session_mod.log.level
+        session_mod.log.setLevel(logging.INFO)
+        try:
+            sess.note_progress(2048)
+            sess.finish_fast()
+        finally:
+            session_mod.log.removeHandler(handler)
+            session_mod.log.setLevel(old_level)
+            release.set()
+            await group.close()
+        assert any("rx rate" in m and f"{drops} queue drops" in m for m in records)
+        assert any("dsp_worker stopped" in m and f"{drops} queue drops" in m for m in records)
 
     asyncio.run(body())
 

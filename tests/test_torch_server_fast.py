@@ -46,7 +46,6 @@ class Stub:
     """A fast lane's session as the group sees it."""
 
     samples_in = 0
-    overflow_events = 0
     group = None
     lane = -1
     id = 0
