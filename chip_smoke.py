@@ -101,7 +101,7 @@ Phases (any failure exits non-zero, and no result line is printed):
              the raw lucky7 pass over 4 blocks, client k with the pass's
              Doppler from PASS_START + k, every lane equal to the group's
              step run directly with the same tables, B1 and B2 launched,
-             B7 never, and lane 0 of the same direct run with the
+             B7 never, the pack kernel's two launches a block, and lane 0 of the same direct run with the
              Doppler interpolated every 2000 samples (the goldens'
              cadence) within +-2 LSB of the golden; (l) one TX client into a file device, 100 TxData of
              2048 B and 2 of the wire's largest, the dump equal to
@@ -122,7 +122,8 @@ Phases (any failure exits non-zero, and no result line is printed):
              demod_grid_sharded on 2 x 2 shards; (o) the server with
              LANES = 512 and its group's lanes over 4 shards
              (SdrModemServer(devices=...)), path (k)'s clients and blocks,
-             every lane equal to the unsharded 512-lane step; (p) python -m
+             every lane equal to the unsharded 512-lane step, B2 once and
+             the pack kernel twice a shard a block; (p) python -m
              sdrmodem_tpu_torch.tools.multihost --backend gloo, 2
              processes x 2 shards, 16 streams x 32768, 0 symbols differing
              from one process; (q) the parity tool, both modes, its gate;
@@ -153,8 +154,12 @@ Phases (any failure exits non-zero, and no result line is printed):
              128 x 2^20 with Doppler must equal B1 followed by B2 bit for
              bit, timed beside the pair and beside B2 alone on the same y3
              (the clock chain's floor), and its plain version at 128 x
-             65536.  Phase 1 prints every kernel's registers and spills,
-             B7's (step: fused_step_kernel) among them.
+             65536.  The pack kernel (pack_lanes) on the server step's own
+             output, the nusat capture at 128 and 512 lanes x 262144 with
+             Doppler: bit for bit its plain version and the old per-chunk
+             split, two launches a call.  Phase 1 prints every kernel's
+             registers and spills, B7's (step: fused_step_kernel) among
+             them.
 
 Prints the card's name and power limit, one JSON line describing each
 kernel, and as its last line {"ok": true, "device": {...}}.  Exits non-zero
@@ -316,6 +321,7 @@ def counters():
     from sdrmodem_tpu_torch.ops import clock as clock_ops
     from sdrmodem_tpu_torch.ops import fir as fir_ops
     from sdrmodem_tpu_torch.ops import front as front_ops
+    from sdrmodem_tpu_torch.ops import pack as pack_ops
     from sdrmodem_tpu_torch.ops import step as step_ops
     from sdrmodem_tpu_torch.ops import tx as tx_ops
 
@@ -325,7 +331,8 @@ def counters():
             "clock_ragged": (clock_ops, "ragged_launches"),
             "fir": (fir_ops, "launches"), "fir_tpu": (fir_ops, "fir_tpu_launches"),
             "fir_exact": (fir_ops, "exact_launches"),
-            "tx_folded": (tx_ops, "folded_launches"), "tx": (tx_ops, "batched_launches")}
+            "tx_folded": (tx_ops, "folded_launches"), "tx": (tx_ops, "batched_launches"),
+            "pack": (pack_ops, "launches")}
 
 
 def counted(torch, path, want, fn, never=()):
@@ -1975,6 +1982,7 @@ def path_long_taps(torch, dev):
 
 SERVER_CLIENTS = 4  # path (j): exact clients sharing one sdr-server stream
 SERVER_BLOCKS = 4  # blocks of 262144 the mock sends in paths (j) and (k)
+PACK_LAUNCHES = 2  # csrc/pack.cu's launches a pack_lanes call: the count scan, then the packing
 TX_SERVER_SMALL = 100  # path (l): tools/perf.py:4's 100 TxData of 2048 B, then 2 of the wire's largest
 
 
@@ -2026,7 +2034,7 @@ def path_server_exact(torch, dev):
         torch, f"(j) server, exact, {SERVER_CLIENTS} clients x {SERVER_BLOCKS} blocks of {b}",
         ("fir_exact", "clock_ragged"),
         lambda: serve_rx("exact", [rx_request()] * SERVER_CLIENTS, blocks, cumulative),
-        never=("front", "front_fused", "clock", "step", "fir"))
+        never=("front", "front_fused", "clock", "step", "fir", "pack"))
     need(all(d == "cuda" for _, d in where), "(j): a client's DSP is not on the card")
     want = np.concatenate(direct)
     golden = np.fromfile(FIXTURES / "lucky7.expected.s8", np.int8)
@@ -2048,7 +2056,8 @@ def path_server_fast(torch, dev):
     and TLE from PASS_START + k.  Every lane's bytes must equal the group's
     step run directly at LANES lanes over the same blocks, with tables from
     device_segments of Dopplers built by the port's doppler_from_settings
-    with the same settings; B1 and B2 must launch, B7 never.  The same
+    with the same settings; B1 and B2 must launch, B7 never, and the pack
+    kernel PACK_LAUNCHES times a block.  The same
     direct run with the Doppler interpolated every 2000 samples (the
     goldens' cadence) must bring lane 0's first pass within +-2 LSB of the
     golden for 99.5% of its symbols."""
@@ -2086,8 +2095,10 @@ def path_server_fast(torch, dev):
     requests = [rx_request(settings, s) for s in starts]
     (got, ms, where), counts = counted(
         torch, f"(k) server, fast, {c} clients x {SERVER_BLOCKS} blocks of {b}, Doppler on every lane",
-        ("front_fused", "clock"), lambda: serve_rx("fast", requests, blocks, cumulative),
+        ("front_fused", "clock", "pack"), lambda: serve_rx("fast", requests, blocks, cumulative),
         never=("step", "fir", "clock_ragged", "fir_exact"))
+    need(counts["pack"] == PACK_LAUNCHES * SERVER_BLOCKS, f"(k): {counts['pack']} pack launches, "
+         f"{PACK_LAUNCHES * SERVER_BLOCKS} expected (two a block)")
     need([lane for lane, _ in where] == list(range(c)), "(k): client k is not lane k")
     need(all(d == "cuda" for _, d in where), "(k): the group is not on the card")
     for k, g in enumerate(got):
@@ -2412,7 +2423,8 @@ def path_server_mesh(torch, dev):
     SHARDED_LANES, SdrModemServer(devices=[card] * SHARDS), the clients and
     blocks of path (k).  Every client's bytes must equal the unsharded
     SHARDED_LANES-lane step run directly with the same tables (what the
-    one-device group runs); B2 launches once a shard a block."""
+    one-device group runs); B2 launches once a shard a block, the pack
+    kernel PACK_LAUNCHES times a shard a block."""
     from sdrmodem_tpu_torch.server.session import BatchedRxGroup
     from tests.torch_server_helpers import rx_request
 
@@ -2428,13 +2440,15 @@ def path_server_mesh(torch, dev):
     try:
         (got, ms, where), counts = counted(
             torch, f"(o) server, fast, {SHARDED_LANES} lanes over {SHARDS} shards, {c} clients x "
-            f"{SERVER_BLOCKS} blocks of {b}", ("front_fused", "clock"),
+            f"{SERVER_BLOCKS} blocks of {b}", ("front_fused", "clock", "pack"),
             lambda: serve_rx("fast", requests, blocks, cumulative, devices=[dev] * SHARDS),
             never=("step", "fir", "clock_ragged", "fir_exact"))
     finally:
         BatchedRxGroup.LANES = lanes
     need(counts["clock"] == SHARDS * SERVER_BLOCKS, f"(o): {counts['clock']} B2 launches, "
          f"{SHARDS * SERVER_BLOCKS} expected (one a shard a block)")
+    need(counts["pack"] == PACK_LAUNCHES * SHARDS * SERVER_BLOCKS, f"(o): {counts['pack']} pack "
+         f"launches, {PACK_LAUNCHES * SHARDS * SERVER_BLOCKS} expected (two a shard a block)")
     need([lane for lane, _ in where] == list(range(c)), "(o): client k is not lane k")
     for k, g in enumerate(got):
         need(np.array_equal(g, np.concatenate(direct[k])), f"(o) lane {k}: bytes differ from the unsharded step's")
@@ -2678,6 +2692,79 @@ def ragged_kernels(main, check_err):
         max_abs_err=max(v["max_abs_err"] for v in chk.values()), ms=rg["b4_ms"],
         plain_ms=chk["channel-major"]["plain_ms"], plain_at="128 x 65536, the check size",
         bound_ms=rg["b4_bound"][0], bound_by=rg["b4_bound"][1], library_ms=None,
+    )]
+
+
+PACK_LANES = (128, 512)  # the fast group's widths: pack_lanes' two shapes in phase 5
+
+
+def pack_cost(c, n, total):
+    """(bytes, flops) of pack_lanes on (c, n, K) symbols with ``total``
+    valid: the valid symbols read and written once, the counts read by
+    both launches, the chunks' offsets written and read, the lanes' totals
+    and offsets; no arithmetic worth counting."""
+    return 2 * total + 2 * 4 * c * n + 2 * 8 * c * n + 3 * 8 * c, 0
+
+
+def old_split(sym, cnt):
+    """Each lane's symbols as the fast group split them before pack_lanes:
+    the valid slots of each chunk, concatenated on the host."""
+    return [np.concatenate([sym[k, t, : cnt[k, t]] for t in range(cnt.shape[1])]) for k in range(cnt.shape[0])]
+
+
+def pack_kernels(torch, dev, main):
+    """pack_lanes alone on the server step's own output: the nusat capture
+    (its long FIRs and 2.1x LUCKY-7's symbols) through the group's call at
+    each of PACK_LANES lanes x SERVER_BLOCK, Doppler rows on every lane.
+    The kernel must equal its plain version bit for bit, flat and offsets,
+    each lane's run must equal the old per-chunk split of the same output,
+    and a call must launch PACK_LAUNCHES kernels.  ``ms`` is the kernels'
+    device time (``graph_ms``); ``wrapper_ms`` the time a call of
+    back-to-back wrapper calls."""
+    from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline
+    from sdrmodem_tpu_torch.ops import pack as pack_ops
+
+    cfg = CHECK_CONFIGS["nusat"]
+    pipe = DemodPipeline(FskDemodConfig(*cfg), SERVER_BLOCK, device=dev)
+    step = pipe.make_batched_step_full("pallas", doppler=True, layout="fanout")
+    iq = np.resize(np.fromfile(FIXTURES / "nusat.cf32", np.complex64), SERVER_BLOCK)
+    x = torch.from_numpy(np.stack([iq.real, iq.imag]).astype(np.float32)).to(dev)
+    rows = {}
+    for c in PACK_LANES:
+        tables = doppler_tables(lane_dopplers(range(c), fs=cfg[0]), SERVER_BLOCK, c, dev)
+        _, symbols, counts = step(pipe.init_full_state(c), x, tables)
+        before = pack_ops.launches
+        flat, offsets = pack_ops.pack_lanes(symbols, counts)
+        torch.cuda.synchronize()
+        launched = pack_ops.launches - before
+        need(launched == PACK_LAUNCHES, f"pack at {c} lanes: {launched} launches a call")
+        plain_ms, (want, want_off) = cuda_ms(torch, lambda: pack_ops.pack_lanes_plain(symbols, counts), 3)
+        total = int(want_off[-1].item())
+        need(torch.equal(offsets, want_off) and torch.equal(flat[:total], want),
+             f"pack at {c} lanes: the kernel differs from its plain version")
+        flat_h, off_h = flat[:total].cpu().numpy(), offsets.cpu().numpy()
+        old = old_split(symbols.cpu().numpy(), counts.cpu().numpy())
+        need(all(np.array_equal(flat_h[off_h[k] : off_h[k + 1]], old[k]) for k in range(c)),
+             f"pack at {c} lanes: a lane's run differs from the old per-chunk split")
+        wrapper_ms, _ = cuda_ms(torch, lambda: pack_ops.pack_lanes(symbols, counts), 200)
+        ms, _ = graph_ms(torch, lambda: pack_ops.pack_lanes(symbols, counts), 200)
+        b, by = bound(*pack_cost(c, counts.shape[1], total))
+        rows[c] = dict(shape=list(symbols.shape), strides=list(symbols.stride()), symbols=total,
+                       ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                       launches_a_call=launched)
+        del symbols, counts, flat, offsets, want, want_off
+    log(f"[kernels] pack on the nusat step's output, bit for bit against its plain version and "
+        f"the old per-chunk split: {json.dumps(rows)} [{card()}]")
+    row = rows[PACK_LANES[0]]
+    return [dict(
+        name="pack", route="cuda", source="sdrmodem_tpu_torch/csrc/pack.cu",
+        replaces="sdrmodem_tpu/server/session.py:555 (a host loop; no TPU kernel)",
+        launches=main["totals"]["pack"], launches_a_call=row["launches_a_call"], max_abs_err=0.0,
+        ms=row["ms"], wrapper_ms=row["wrapper_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=None, shape=row["shape"],
+        lanes_ms={str(c): r["ms"] for c, r in rows.items()},
+        lanes_bound_ms={str(c): r["bound_ms"] for c, r in rows.items()},
     )]
 
 
@@ -3064,7 +3151,8 @@ def main() -> int:
                          ("main", lambda: phase_main(torch, dev)),
                          ("kernels", lambda: phase_kernels(torch, dev, done["main"])
                           + tx_kernels(torch, dev, done["main"], done["check"])
-                          + ragged_kernels(done["main"], done["check"]))):
+                          + ragged_kernels(done["main"], done["check"])
+                          + pack_kernels(torch, dev, done["main"]))):
             t0 = time.perf_counter()
             done[name] = fn()
             log(f"[{name}] passed in {time.perf_counter() - t0:.3f} s")

@@ -19,7 +19,8 @@ SDRM_SERVER_MESH picks them):
 exact clients on ``DemodPipeline(..., exact=True).streamer()`` (the
 float64 FIR kernel and B4), fast-mode groups on
 ``make_batched_step_full("pallas", doppler=True, layout="fanout")`` (B1
-and B2, or the banded front through B3 where B1 does not take the taps),
+and B2, or the banded front through B3 where B1 does not take the taps;
+the symbols packed lane by lane by ``ops/pack.py:pack_lanes``),
 standalone clients on the float32 streamer (B3 and B4), TX on
 ``StreamingGfskMod`` (B5).
 """
@@ -42,6 +43,7 @@ from sdrmodem_tpu_torch.dsp.fsk_demod import FskDemodConfig
 from sdrmodem_tpu_torch.dsp.pipeline import DemodPipeline, DemodStateFull
 from sdrmodem_tpu_torch.dsp.streaming import StreamingGfskMod
 from sdrmodem_tpu_torch.ops._build import resolve_device
+from sdrmodem_tpu_torch.ops.pack import pack_lanes
 from sdrmodem_tpu_torch.server import wire
 from sdrmodem_tpu_torch.server.config import RxSdrType, ServerConfig
 from sdrmodem_tpu_torch.utils.convert import doppler_tables_from_numpy, segment_tables
@@ -571,9 +573,11 @@ class BatchedRxGroup:
         ``sdrm.group.step`` (``_step_host`` in a worker thread: the one
         span that crosses an await, so with several groups on one loop
         another group's spans can fall inside it), ``sdrm.group.split``
-        (every lane's symbols gathered from its chunks), then each
-        session's ``sdrm.session.emit``.  The counter ``group.blocks``
-        counts the blocks stepped: the spans' totals are read a block."""
+        (each live lane's slice of its shard's packed symbols, a lane
+        with none left out), then each session's ``sdrm.session.emit``.
+        The counter ``group.blocks`` counts the blocks stepped, the spans'
+        totals read a block; ``group.packed`` counts the shards' packings
+        (one a shard a block)."""
         with spans.span("sdrm.group.rows"):
             # apply lane resets queued by attach(); the single worker task
             # processes blocks serially, so no step can be mid-flight here
@@ -598,40 +602,44 @@ class BatchedRxGroup:
                     rows[lane] = s.doppler.device_segments(self.block, +1)
             dop = segment_tables(rows, self.dop_rows, self.LANES)
         with spans.span("sdrm.group.step"):
-            self.state, symbols, counts = await asyncio.to_thread(self._step_host, x, dop)
+            self.state, packed = await asyncio.to_thread(self._step_host, x, dop)
         spans.add("group.blocks", 1)
-        # symbols: (C, n_chunks, K_c) with per-(lane, chunk) valid counts
+        # each shard's lanes packed back to back: a lane's symbols are one slice
         with spans.span("sdrm.group.split"):
             out = []
             for lane, s in sessions.items():
-                parts = [
-                    symbols[lane, t, : counts[lane, t]]
-                    for t in range(counts.shape[1])
-                    if counts[lane, t]
-                ]
-                if parts:
-                    out.append((s, np.concatenate(parts)))
+                shard, local = divmod(lane, self.local)
+                flat, offsets = packed[shard]
+                start, end = offsets[local], offsets[local + 1]
+                if end > start:
+                    out.append((s, flat[start:end]))
         for s, lane_symbols in out:
             await s.emit(lane_symbols)
 
     def _step_host(self, x: np.ndarray, dop):
-        """One step on the devices: (state', symbols (C, n_chunks, K) int8,
-        counts (C, n_chunks) int32), numpy out.  Each shard steps the shared
-        block and its lanes' Doppler rows on its device; its outputs come
-        back in one host copy each."""
+        """One step on the devices: (state', one (flat, offsets) a shard),
+        numpy out.  Each shard steps the shared block and its lanes'
+        Doppler rows on its device and packs its symbols there
+        (``ops/pack.py:pack_lanes``): local lane l's symbols are
+        ``flat[offsets[l]:offsets[l + 1]]``.  Its offsets come back first,
+        then only the valid prefix of its packed buffer."""
         states = self.state if self.sharded else (self.state,)
         xs = {}
-        outs = []
+        new, packed = [], []
         for i, (step, state, dev) in enumerate(zip(self._steps, states, self.devices)):
             if dev not in xs:
                 xs[dev] = torch.from_numpy(x).to(dev)
             lanes = slice(i * self.local, (i + 1) * self.local)
-            outs.append(step(state, xs[dev], doppler_tables_from_numpy(
-                tuple(t[:, lanes] for t in dop), self.local, device=dev)))
-        new = tuple(o[0] for o in outs)
-        symbols = np.concatenate([o[1].cpu().numpy() for o in outs])
-        counts = np.concatenate([o[2].cpu().numpy() for o in outs])
-        return (new if self.sharded else new[0]), symbols, counts
+            state, symbols, counts = step(state, xs[dev], doppler_tables_from_numpy(
+                tuple(t[:, lanes] for t in dop), self.local, device=dev))
+            new.append(state)
+            packed.append(pack_lanes(symbols, counts))
+            spans.add("group.packed", 1)
+        out = []
+        for flat, offsets in packed:
+            offsets = offsets.cpu().numpy()
+            out.append((flat[: int(offsets[-1])].cpu().numpy(), offsets))
+        return (tuple(new) if self.sharded else new[0]), out
 
 
 class SdrStream:
